@@ -1,0 +1,155 @@
+"""Batch row-gather from a card-resident, paged frame table.
+
+Port of ``cilrs_tpu/ops/gather.py``. The table of uint8 frames lives on the card
+as a tuple of pages, each a 2-D ``[n_p, row_elems]`` tensor; global row ``g``
+lives at ``pages[g // page_rows][g % page_rows]``. ``gather_rows_paged`` copies
+the requested rows into a fresh ``[B, row_elems]`` tensor.
+
+On a CUDA tensor the wrapper launches the hand-written kernel of
+``csrc/gather_rows.cu`` (one launch for all pages) or raises; there is no
+fallback. On a CPU tensor it runs ``gather_rows_plain``, the same routing in
+plain PyTorch, which is what the CPU tests hold against the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from cilrs_tpu_torch.ops.build import load_library
+
+# The kernel moves 16-byte vectors, so every row must start 16-byte aligned.
+# (The TPU build padded rows to whole (sublane, 128-lane) tiles instead.)
+ROW_ALIGN_BYTES = 16
+
+# Per-page byte ceiling, kept from the TPU build so both packages page a table
+# the same way (there it kept every gather operand under a 2^33-byte offset
+# fault of the TPU compiler; the CUDA kernel uses 64-bit offsets throughout).
+PAGE_BYTE_LIMIT = 2 ** 33
+
+
+def padded_row_elems(d: int, dtype: torch.dtype) -> int:
+    """Smallest row size >= d whose byte length is a multiple of 16."""
+    unit = max(ROW_ALIGN_BYTES // torch.empty((), dtype=dtype).element_size(), 1)
+    return d + ((-d) % unit)
+
+
+def paged_layout(num_rows: int, row_bytes: int, slack_rows: int,
+                 max_page_bytes: int = PAGE_BYTE_LIMIT):
+    """(num_pages, page_rows, page_slots) for a table of ``num_rows`` logical
+    rows where every page needs ``slack_rows`` physical slack (collection DUS
+    overshoot) and must stay strictly under ``max_page_bytes``.
+
+    Pages are balanced (equal physical size). Identical to the JAX package's.
+    """
+    max_slots = max_page_bytes // row_bytes  # slots * row_bytes could == limit
+    if max_slots * row_bytes >= max_page_bytes:
+        max_slots -= 1  # strictly under
+    max_logical = max_slots - slack_rows
+    if max_logical <= 0:
+        raise ValueError(
+            f"slack ({slack_rows} rows) leaves no room under the "
+            f"{max_page_bytes}-byte page limit at {row_bytes} B/row")
+    num_pages = -(-num_rows // max_logical)
+    page_rows = -(-num_rows // num_pages)
+    page_slots = page_rows + slack_rows
+    assert page_slots * row_bytes < max_page_bytes
+    return num_pages, page_rows, page_slots
+
+
+def gather_rows_plain(pages, idx: torch.Tensor, page_rows: int) -> torch.Tensor:
+    """The plain PyTorch version: the JAX package's routing, one gather per
+    page and a select. ``pages`` are 2-D; out-of-range rows clamp within their
+    page, and an index that maps to no page reads page 0, row 0."""
+    idx = idx.long()
+    if len(pages) == 1:
+        return pages[0].index_select(0, idx.clamp(0, pages[0].shape[0] - 1))
+    page = torch.div(idx, page_rows, rounding_mode="floor")
+    local = idx - page * page_rows
+    out = None
+    for i, pg in enumerate(pages):
+        sel = page == i
+        g = pg.index_select(0, torch.where(sel, local, 0).clamp(0, pg.shape[0] - 1))
+        out = g if out is None else torch.where(sel[:, None], g, out)
+    return out
+
+
+@functools.cache
+def _library():
+    lib = load_library("gather_rows")
+    lib.gather_rows_launch.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p]
+    lib.gather_rows_launch.restype = ctypes.c_int
+    lib.gather_rows_max_pages.argtypes = []
+    lib.gather_rows_max_pages.restype = ctypes.c_int
+    lib.gather_rows_error_string.argtypes = [ctypes.c_int]
+    lib.gather_rows_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _gather_rows_cuda(pages, idx: torch.Tensor, page_rows: int) -> torch.Tensor:
+    lib = _library()
+    dev = pages[0].device
+    row_bytes = pages[0].shape[1] * pages[0].element_size()
+    if row_bytes % ROW_ALIGN_BYTES:
+        raise ValueError(f"row of {row_bytes} B is not a multiple of "
+                         f"{ROW_ALIGN_BYTES} B; pad rows to padded_row_elems")
+    if len(pages) > lib.gather_rows_max_pages():
+        raise ValueError(f"{len(pages)} pages; the kernel takes at most "
+                         f"{lib.gather_rows_max_pages()}")
+    for pg in pages:
+        if pg.data_ptr() % ROW_ALIGN_BYTES or pg.shape[0] == 0:
+            raise ValueError("every page must be non-empty and 16-byte aligned")
+    out = torch.empty((idx.shape[0], pages[0].shape[1]), dtype=pages[0].dtype, device=dev)
+    ptrs = (ctypes.c_void_p * len(pages))(*[pg.data_ptr() for pg in pages])
+    rows = (ctypes.c_longlong * len(pages))(*[pg.shape[0] for pg in pages])
+    with torch.cuda.device(dev):
+        status = lib.gather_rows_launch(
+            ptrs, rows, len(pages), page_rows, idx.data_ptr(), idx.shape[0],
+            out.data_ptr(), row_bytes, torch.cuda.current_stream(dev).cuda_stream)
+    if status != 0:
+        raise RuntimeError("gather_rows kernel launch failed: "
+                           + lib.gather_rows_error_string(status).decode())
+    gather_rows_paged.launches += 1
+    return out
+
+
+def gather_rows_paged(pages, idx: torch.Tensor, page_rows: int) -> torch.Tensor:
+    """Gather global rows ``idx`` [B] from a paged table -> [B, row_elems].
+
+    ``pages`` is a sequence of [n_p, ...] tensors of one dtype and row size on
+    one device; non-final pages hold ``page_rows`` logical rows. CUDA tensors go
+    through the kernel (one launch for every page), CPU tensors through
+    ``gather_rows_plain``. The launch is on the current stream and does not
+    synchronise.
+    """
+    pages = tuple(pg.reshape(pg.shape[0], -1) for pg in pages)
+    if not pages:
+        raise ValueError("no pages")
+    dev, dtype, width = pages[0].device, pages[0].dtype, pages[0].shape[1]
+    for pg in pages:
+        if pg.device != dev or pg.dtype != dtype or pg.shape[1] != width:
+            raise ValueError("pages differ in device, dtype or row size")
+        if not pg.is_contiguous():
+            raise ValueError("pages must be contiguous")
+    if idx.ndim != 1 or idx.device != dev:
+        raise ValueError(f"idx must be 1-D on {dev}, got {tuple(idx.shape)} on {idx.device}")
+    idx = idx.to(torch.int32).contiguous()
+    if dev.type == "cpu":
+        return gather_rows_plain(pages, idx, page_rows)
+    if dev.type != "cuda":
+        raise ValueError(f"gather_rows runs on CUDA or CPU tensors, not {dev.type}")
+    return _gather_rows_cuda(pages, idx, page_rows)
+
+
+gather_rows_paged.launches = 0  # kernel launches, for showing a path ran on it
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather rows ``idx`` [B] of one table [N, ...] -> [B, row_elems]; indices
+    clamp to [0, N-1]."""
+    return gather_rows_paged((table,), idx, table.shape[0])
