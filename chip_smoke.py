@@ -8,16 +8,21 @@ its plain PyTorch version on the card, and drives the offline-evaluation path
 end to end at the full width of the repo's model (CILRS, ResNet-34 trunk,
 88x200x3 u8 frames, speed skip on, random weights from a seed):
 
-  1. build + kernel check: the row-gather kernel against its plain version,
+  1. build + kernel check: the row-gather kernel (a persistent grid of TMA
+     bulk copies through a shared-memory ring) against its plain version,
      bit-exact, on u8 and f32 tables, one and two pages, repeated and
-     out-of-range indices, and a single page past 2^31 bytes;
+     out-of-range indices, and a single page past 2^31 bytes; ptxas's
+     registers and shared memory;
   2. the normal entry point: a synthetic session on disk and a .pth policy go
      through ``python -m cilrs_tpu_torch.cli.report``'s main();
   3. full size: a 176,256-frame u8 table on the card (9.31 GB, 2 pages), the
      seed-42 val split evaluated with collect_predictions_resident at batch
      120 and 25 batches a gather; kernel / plain / index_select timings at the
-     path's 3,000-row gather; frames per second; the card's bf16 forward on 8
-     frames against the same weights in float32 on the CPU.
+     path's 3,000-row gather beside a contiguous copy_ of the same bytes (the
+     practical ceiling of a copy on the card) and the HBM bound, the kernel's
+     GB/s, and the host microseconds a call of the wrapper and of
+     index_select takes to issue; frames per second; the card's bf16 forward
+     on 8 frames against the same weights in float32 on the CPU.
 
 Prints one JSON line per phase, then the kernels line, the card's name and
 power limit, and last {"ok": true, "device": {...}}. A failed phase ends the
@@ -26,10 +31,10 @@ run with a non-zero exit and no ok line; so does a machine without CUDA.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -38,17 +43,18 @@ import traceback
 import numpy as np
 import torch
 
+from cilrs_tpu_torch.bench.timing import card_line, copy_bound_ms, host_us_per_call, median_ms
 from cilrs_tpu_torch.cli import report as report_cli
 from cilrs_tpu_torch.config import load_train_config
 from cilrs_tpu_torch.data.dataset import make_synthetic_dataset, save_session, stratified_split
 from cilrs_tpu_torch.evaluation.report import GROUP_BATCHES, collect_predictions_resident
 from cilrs_tpu_torch.models.cilrs import CILRS
 from cilrs_tpu_torch.ops.build import build
-from cilrs_tpu_torch.ops.gather import gather_rows_paged, gather_rows_plain, paged_layout
+from cilrs_tpu_torch.ops.gather import (bulk_plan, gather_rows_paged, gather_rows_plain,
+                                        paged_layout)
 from cilrs_tpu_torch.ops.image import normalize
 from cilrs_tpu_torch.train.checkpoint import load_policy, save_checkpoint_pth
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FULL_FRAMES = 176_256
 FRAME_SHAPE = (88, 200, 3)
 ROW_BYTES = int(np.prod(FRAME_SHAPE))  # 52,800: already 16-byte aligned
@@ -65,25 +71,6 @@ FWD_MIN_CORR = 0.99
 
 def emit(obj: dict):
     print(json.dumps(obj), flush=True)
-
-
-def median_ms(fn, reps: int = 20, rounds: int = 7, warmup: int = 3) -> float:
-    """Device time of one call of fn: CUDA events around ``reps`` calls queued
-    back to back (so the host's launch overhead hides behind the device's
-    work, as on the path), divided by ``reps``; the median of ``rounds``."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    per_call = []
-    for _ in range(rounds):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        per_call.append(start.elapsed_time(end) / reps)
-    return float(np.median(per_call))
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -140,7 +127,13 @@ def phase_build_and_check(dev) -> dict:
     return {"phase": "build_and_kernel_check", "ok": True, "build_s": round(build_s, 3),
             "cases": cases, "big_page_bytes": big_bytes,
             "ptxas": [ln.strip() for ln in ptxas.get("gather_rows", "").splitlines()
-                      if "registers" in ln or "spill" in ln]}
+                      if "registers" in ln or "spill" in ln or "smem" in ln],
+            # The ring is dynamic shared memory, which ptxas does not see: the
+            # launch plan at the path's 3,000 rows, smem_bytes a block.
+            "launch_plan": dict(zip(
+                ("chunk_bytes", "chunks_per_row", "stages", "grid", "smem_bytes"),
+                bulk_plan(ROW_BYTES, BATCH * GROUP_BATCHES,
+                          torch.cuda.get_device_properties(dev).multi_processor_count)))}
 
 
 def phase_cli(dev, workdir: str) -> tuple[dict, str]:
@@ -237,10 +230,18 @@ def phase_full_size(dev, ckpt: str) -> tuple[dict, dict]:
         [-1, FULL_FRAMES, page_rows - 1, page_rows, 2 * page_rows + 5], dtype=torch.int32,
         device=dev)]), page_rows))
     local = (idx.long() % page_rows)
-    kernel_ms = median_ms(lambda: gather_rows_paged(pages, idx, page_rows))
+    contiguous = pages[0][:b]  # the same 158.4 MB, contiguous
+    dst = torch.empty_like(contiguous)
+    kernel_fn = functools.partial(gather_rows_paged, pages, idx, page_rows)
+    library_fn = functools.partial(torch.index_select, pages[0], 0, local)
+    kernel_ms = median_ms(kernel_fn)
     plain_ms = median_ms(lambda: gather_rows_plain(pages, idx, page_rows))
-    library_ms = median_ms(lambda: torch.index_select(pages[0], 0, local))
-    bound_ms = 2 * b * ROW_BYTES / HBM_BYTES_PER_S * 1e3
+    library_ms = median_ms(library_fn)
+    copy_ms = median_ms(lambda: dst.copy_(contiguous))
+    bound_ms = copy_bound_ms(b * ROW_BYTES)
+    host_us = {"kernel_wrapper": host_us_per_call(kernel_fn),
+               "index_select": host_us_per_call(library_fn)}
+    del dst
 
     # The card's bf16 forward against the same weights in float32 on the CPU.
     rows = torch.from_numpy(val_idx[:8].astype(np.int64)).to(dev)
@@ -274,7 +275,10 @@ def phase_full_size(dev, ckpt: str) -> tuple[dict, dict]:
             "profile_one_group": profile,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
             "gather_rows_per_launch": b, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "index_select_ms": library_ms, "bound_ms": bound_ms,
+            "index_select_ms": library_ms, "copy_ms": copy_ms, "bound_ms": bound_ms,
+            "kernel_gbps": 2 * b * ROW_BYTES / (kernel_ms * 1e-3) / 1e9,
+            "kernel_ms_over_bound_ms": kernel_ms / bound_ms,
+            "host_us_per_call": host_us,
             "bf16_vs_cpu_f32": fwd, "tolerance": {"rel": FWD_REL_TOL, "corr": FWD_MIN_CORR}}
     kernel = {"name": "gather_rows", "route": "cuda",
               "source": "cilrs_tpu_torch/csrc/gather_rows.cu",
@@ -306,14 +310,6 @@ def profile_group(model, table, labels, rows, cfg) -> dict:
     return {"rows": len(rows), "wall_ms_under_profiler": wall_ms, "device_busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms, "gather_kernel_ms": gather_ms,
             "top_kernels_ms": [[k[:80], ms] for k, ms in top]}
-
-
-def card_line() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
-    return res.stdout.strip().splitlines()[0]
 
 
 def main() -> int:

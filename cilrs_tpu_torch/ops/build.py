@@ -23,7 +23,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
         if cand and os.path.exists(cand):
@@ -50,7 +50,7 @@ def build(names) -> dict[str, str]:
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         procs[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")],
+            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
     reports = {}
     for name, (proc, tmp, out) in procs.items():

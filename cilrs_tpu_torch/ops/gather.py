@@ -7,8 +7,11 @@ the requested rows into a fresh ``[B, row_elems]`` tensor.
 
 On a CUDA tensor the wrapper launches the hand-written kernel of
 ``csrc/gather_rows.cu`` (one launch for all pages) or raises; there is no
-fallback. On a CPU tensor it runs ``gather_rows_plain``, the same routing in
-plain PyTorch, which is what the CPU tests hold against the JAX package.
+fallback. The kernel is a persistent grid of TMA bulk copies through a ring in
+shared memory; its launch plan is computed here, by ``bulk_plan`` and
+``block_items``, so that the CPU tests can check it. On a CPU tensor the
+wrapper runs ``gather_rows_plain``, the same routing in plain PyTorch, which is
+what the CPU tests hold against the JAX package.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import torch
 
 from cilrs_tpu_torch.ops.build import load_library
 
-# The kernel moves 16-byte vectors, so every row must start 16-byte aligned.
+# The kernel's bulk copies move multiples of 16 bytes between 16-byte aligned
+# addresses, so every row must start 16-byte aligned.
 # (The TPU build padded rows to whole (sublane, 128-lane) tiles instead.)
 ROW_ALIGN_BYTES = 16
 
@@ -76,45 +80,117 @@ def gather_rows_plain(pages, idx: torch.Tensor, page_rows: int) -> torch.Tensor:
     return out
 
 
+# The kernel's launch plan. These mirror csrc/gather_rows.cu's #defines
+# (GATHER_MAX_SMEM, GATHER_BARRIER_BYTES, and the defaults of GATHER_MAX_STAGES
+# and GATHER_STORE_DEPTH), which its launcher checks the plan against.
+SMEM_MAX_BYTES = 232_448   # dynamic shared memory a block may opt in to on Hopper
+BARRIER_BYTES = 128        # the stages' mbarriers, at the head of shared memory
+MAX_STAGES = 16
+STORE_DEPTH = 1            # bulk stores left in flight before a stage is reloaded
+RING_BYTES = 212_992       # shared memory the ring of stages may take on one SM
+CHUNK_BYTES_MAX = 17_600   # a third of a 52,800-B frame a stage, twelve stages
+BLOCKS_PER_SM = 1
+
+
+@functools.lru_cache(maxsize=64)
+def bulk_plan(row_bytes: int, b: int, num_sms: int, *, max_chunk_bytes: int = CHUNK_BYTES_MAX,
+              blocks_per_sm: int = BLOCKS_PER_SM, max_stages: int = MAX_STAGES,
+              store_depth: int = STORE_DEPTH):
+    """Launch plan of the gather kernel for ``b`` rows of ``row_bytes`` on a
+    card of ``num_sms`` SMs: (chunk_bytes, chunks_per_row, stages, grid,
+    smem_bytes).
+
+    Each row is cut into ``chunks_per_row`` chunks of ``chunk_bytes`` (the last
+    may be shorter), all multiples of 16 B as the bulk copy needs; the ring
+    holds ``stages`` chunks, at least ``store_depth`` + 1 so that a load stays
+    in flight; ``grid`` persistent blocks share the ``b * chunks_per_row``
+    items as ``block_items`` deals them out. The keywords are for measuring
+    other plans, and a kernel built with other values of its tunables
+    (``bench/gather_ab.py``); the wrapper keeps their defaults.
+    """
+    if row_bytes <= 0 or row_bytes % ROW_ALIGN_BYTES:
+        raise ValueError(f"row of {row_bytes} B is not a positive multiple of {ROW_ALIGN_BYTES} B")
+    ring = RING_BYTES // blocks_per_sm
+    max_chunk = min(max_chunk_bytes, ring // (store_depth + 1)) // 16 * 16
+    fewest = -(-row_bytes // max_chunk)  # chunks a row needs to fit a stage
+    chunk_bytes = -(-row_bytes // (fewest * 16)) * 16  # an even split, rounded up to 16 B
+    chunks_per_row = -(-row_bytes // chunk_bytes)
+    stages = min(max_stages, ring // chunk_bytes)
+    grid = min(num_sms * blocks_per_sm, b * chunks_per_row)
+    return chunk_bytes, chunks_per_row, stages, grid, BARRIER_BYTES + stages * chunk_bytes
+
+
+def block_items(block: int, total: int, grid: int) -> range:
+    """The items that persistent block ``block`` of ``grid`` copies, in its
+    order, as the kernel deals ``total`` items out: round-robin, so counts
+    differ by at most one and the blocks move in step over neighbouring rows.
+    Item ``k`` is chunk ``k % chunks_per_row`` of output row
+    ``k // chunks_per_row``."""
+    return range(block, total, grid)
+
+
+# gather_rows_launch(page_ptrs, page_phys_rows, num_pages, page_rows, idx, b,
+# out, row_bytes, chunk_bytes, chunks_per_row, stages, grid, smem_bytes,
+# device, stream)
+LAUNCH_ARGTYPES = [
+    ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
 @functools.cache
 def _library():
     lib = load_library("gather_rows")
-    lib.gather_rows_launch.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_void_p]
+    lib.gather_rows_launch.argtypes = LAUNCH_ARGTYPES
     lib.gather_rows_launch.restype = ctypes.c_int
     lib.gather_rows_max_pages.argtypes = []
     lib.gather_rows_max_pages.restype = ctypes.c_int
     lib.gather_rows_error_string.argtypes = [ctypes.c_int]
     lib.gather_rows_error_string.restype = ctypes.c_char_p
-    return lib
+    return lib, lib.gather_rows_max_pages()
+
+
+@functools.lru_cache(maxsize=16)
+def _page_table(ptrs: tuple, rows: tuple):
+    """The launcher's ctypes arrays of page pointers and physical rows, reused
+    while the pages' pointers and row counts are the same (keyed by value)."""
+    for ptr, n in zip(ptrs, rows):
+        if ptr % ROW_ALIGN_BYTES or n == 0:
+            raise ValueError("every page must be non-empty and 16-byte aligned")
+    return (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_longlong * len(rows))(*rows)
+
+
+@functools.cache
+def _num_sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _gather_rows_cuda(pages, idx: torch.Tensor, page_rows: int) -> torch.Tensor:
-    lib = _library()
+    lib, max_pages = _library()
     dev = pages[0].device
     row_bytes = pages[0].shape[1] * pages[0].element_size()
     if row_bytes % ROW_ALIGN_BYTES:
         raise ValueError(f"row of {row_bytes} B is not a multiple of "
                          f"{ROW_ALIGN_BYTES} B; pad rows to padded_row_elems")
-    if len(pages) > lib.gather_rows_max_pages():
-        raise ValueError(f"{len(pages)} pages; the kernel takes at most "
-                         f"{lib.gather_rows_max_pages()}")
-    for pg in pages:
-        if pg.data_ptr() % ROW_ALIGN_BYTES or pg.shape[0] == 0:
-            raise ValueError("every page must be non-empty and 16-byte aligned")
-    out = torch.empty((idx.shape[0], pages[0].shape[1]), dtype=pages[0].dtype, device=dev)
-    ptrs = (ctypes.c_void_p * len(pages))(*[pg.data_ptr() for pg in pages])
-    rows = (ctypes.c_longlong * len(pages))(*[pg.shape[0] for pg in pages])
-    with torch.cuda.device(dev):
-        status = lib.gather_rows_launch(
-            ptrs, rows, len(pages), page_rows, idx.data_ptr(), idx.shape[0],
-            out.data_ptr(), row_bytes, torch.cuda.current_stream(dev).cuda_stream)
+    if len(pages) > max_pages:
+        raise ValueError(f"{len(pages)} pages; the kernel takes at most {max_pages}")
+    ptrs, rows = _page_table(tuple(pg.data_ptr() for pg in pages),
+                             tuple(pg.shape[0] for pg in pages))
+    b = idx.shape[0]
+    out = torch.empty((b, pages[0].shape[1]), dtype=pages[0].dtype, device=dev)
+    chunk_bytes, chunks_per_row, stages, grid, smem_bytes = bulk_plan(
+        row_bytes, b, _num_sms(dev.index))
+    # The raw handle of the current stream, without building a Stream object.
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    status = lib.gather_rows_launch(
+        ptrs, rows, len(pages), page_rows, idx.data_ptr(), b, out.data_ptr(), row_bytes,
+        chunk_bytes, chunks_per_row, stages, grid, smem_bytes, dev.index, stream)
     if status != 0:
         raise RuntimeError("gather_rows kernel launch failed: "
                            + lib.gather_rows_error_string(status).decode())
-    gather_rows_paged.launches += 1
+    if b:
+        gather_rows_paged.launches += 1
     return out
 
 
@@ -127,7 +203,7 @@ def gather_rows_paged(pages, idx: torch.Tensor, page_rows: int) -> torch.Tensor:
     ``gather_rows_plain``. The launch is on the current stream and does not
     synchronise.
     """
-    pages = tuple(pg.reshape(pg.shape[0], -1) for pg in pages)
+    pages = tuple(pg if pg.dim() == 2 else pg.reshape(pg.shape[0], -1) for pg in pages)
     if not pages:
         raise ValueError("no pages")
     dev, dtype, width = pages[0].device, pages[0].dtype, pages[0].shape[1]

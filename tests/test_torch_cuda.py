@@ -44,6 +44,43 @@ def test_gather_kernel_matches_plain(cuda_device, num_pages, dtype):
     assert torch.equal(got.cpu(), want)
 
 
+# Edge cases of the persistent grid and the ring: (rows, row width, dtype,
+# pages, B, a launch plan other than the wrapper's).
+EDGE_CASES = {
+    "b0": (64, 52_800, torch.uint8, 1, 0, {}),
+    "b1": (64, 52_800, torch.uint8, 2, 1, {}),
+    "b_under_sms": (64, 52_800, torch.uint8, 2, 37, {}),
+    "rows_16_bytes": (500, 16, torch.uint8, 2, 3000, {}),
+    "uneven_chunks_52800": (400, 52_800, torch.uint8, 2, 517, {"max_chunk_bytes": 7_552}),
+    "f32_3_pages_4096_bytes": (300, 1024, torch.float32, 3, 3000, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_gather_kernel_edge_cases(cuda_device, monkeypatch, case):
+    import functools
+
+    rows, width, dtype, num_pages, b, plan = EDGE_CASES[case]
+    if plan:
+        monkeypatch.setattr(tg, "bulk_plan", functools.partial(tg.bulk_plan, **plan))
+        chunk, per_row, *_ = tg.bulk_plan(width * torch.empty((), dtype=dtype).element_size(),
+                                          b, 132)
+        assert per_row * chunk != width  # the last chunk of each row is shorter
+    g = torch.Generator(device=cuda_device).manual_seed(b)
+    page_rows = rows // num_pages
+    pages = tuple(torch.randint(0, 256, (page_rows + (3 if p < num_pages - 1 else 0), width),
+                                generator=g, device=cuda_device).to(dtype)
+                  for p in range(num_pages))
+    idx = torch.randint(-5, rows + 5, (b,), generator=g, device=cuda_device, dtype=torch.int32)
+    before = tg.gather_rows_paged.launches
+    got = tg.gather_rows_paged(pages, idx, page_rows)
+    torch.cuda.synchronize()
+    assert got.shape == (b, width) and got.dtype == dtype
+    assert tg.gather_rows_paged.launches == before + (1 if b else 0)
+    want = tg.gather_rows_plain(tuple(p.cpu() for p in pages), idx.cpu(), page_rows)
+    assert torch.equal(got.cpu(), want)
+
+
 def test_gather_kernel_rejects_unaligned_rows(cuda_device):
     table = torch.zeros((8, 45), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError, match="16"):

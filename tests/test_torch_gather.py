@@ -160,15 +160,158 @@ def test_cpu_gather_does_not_launch():
     assert tg.gather_rows_paged.launches == before
 
 
-def test_kernel_source_and_build_flags():
-    """The kernel source exists in the package and builds for sm_90a; nothing
-    is built at import time (no nvcc here)."""
+def _kernel_source() -> str:
     import os
 
     from cilrs_tpu_torch.ops import build
 
-    src = os.path.join(build.CSRC_DIR, "gather_rows.cu")
-    text = open(src).read()
+    with open(os.path.join(build.CSRC_DIR, "gather_rows.cu")) as f:
+        return f.read()
+
+
+def test_kernel_source_and_build_flags():
+    """The kernel source exists in the package and builds for sm_90a; nothing
+    is built at import time (no nvcc here). It moves rows with TMA bulk copies
+    tracked by mbarriers."""
+    from cilrs_tpu_torch.ops import build
+
+    text = _kernel_source()
     assert 'extern "C" int gather_rows_launch' in text and "cudaGetLastError" in text
+    assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" in text
+    assert "cp.async.bulk.global.shared::cta.bulk_group" in text
+    assert "cp.async.bulk.wait_group.read" in text and "fence.mbarrier_init" in text
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in text
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.library_path("gather_rows").startswith(build.BUILD_DIR)
+
+
+@pytest.mark.parametrize("define,value", [
+    ("GATHER_MAX_SMEM", tg.SMEM_MAX_BYTES), ("GATHER_BARRIER_BYTES", tg.BARRIER_BYTES),
+    ("GATHER_MAX_STAGES", tg.MAX_STAGES), ("GATHER_STORE_DEPTH", tg.STORE_DEPTH)])
+def test_plan_constants_match_kernel(define, value):
+    """bulk_plan's limits are the ones the kernel's launcher checks."""
+    import re
+
+    assert int(re.search(rf"#define {define} (\d+)", _kernel_source()).group(1)) == value
+
+
+# Launch plans: the wrapper's own, and the others the A/B script times (half
+# rows a stage; two blocks an SM; a chunk that does not divide the row).
+PLAN_VARIANTS = {"default": {}, "half_rows": {"max_chunk_bytes": 26_624},
+                 "two_blocks_per_sm": {"blocks_per_sm": 2},
+                 "uneven_chunks": {"max_chunk_bytes": 7_552}}
+
+
+@pytest.mark.parametrize("variant", list(PLAN_VARIANTS))
+@pytest.mark.parametrize("b", [0, 1, 131, 3000])
+@pytest.mark.parametrize("row_bytes", [16, 4096, 52_800, 53_248])
+def test_bulk_plan_covers_every_chunk_once(row_bytes, b, variant):
+    """The kernel's work split, walked in Python: chunks tile each row
+    exactly in multiples of 16 B, the ring fits in shared memory, the grid is
+    no larger than the item count, and the blocks' items cover every
+    (row, chunk) pair exactly once with counts differing by at most one."""
+    kw = PLAN_VARIANTS[variant]
+    num_sms = 132
+    chunk, per_row, stages, grid, smem = tg.bulk_plan(row_bytes, b, num_sms, **kw)
+    spans = [min(chunk, row_bytes - c * chunk) for c in range(per_row)]
+    assert chunk % 16 == 0 and all(s > 0 and s % 16 == 0 for s in spans)
+    assert sum(spans) == row_bytes
+    assert tg.STORE_DEPTH < stages <= tg.MAX_STAGES
+    assert smem == tg.BARRIER_BYTES + stages * chunk <= tg.SMEM_MAX_BYTES
+    assert stages * chunk * kw.get("blocks_per_sm", tg.BLOCKS_PER_SM) <= tg.RING_BYTES
+    total = b * per_row
+    assert grid <= total and grid <= num_sms * kw.get("blocks_per_sm", tg.BLOCKS_PER_SM)
+    assert (grid >= 1) == (total >= 1)
+    seen, sizes = [], []
+    for blk in range(grid):
+        items = tg.block_items(blk, total, grid)
+        # The kernel's count and its k-th item (csrc/gather_rows.cu).
+        n = total // grid + (blk < total % grid)
+        assert list(items) == [blk + k * grid for k in range(n)]
+        sizes.append(n)
+        seen += [divmod(item, per_row) for item in items]
+    assert sorted(seen) == [(i, c) for i in range(b) for c in range(per_row)]
+    assert len(set(seen)) == len(seen)
+    if grid:
+        assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+
+
+def _cursor_walk(first, step, n, per_row, stages):
+    """The kernel's Cursor (csrc/gather_rows.cu), modelled in Python: n items
+    from item `first`, `step` apart, moved on by additions only."""
+    step_rows, step_chunks = divmod(step, per_row)
+    i, c, s, parity = first // per_row, first % per_row, 0, 0
+    for _ in range(n):
+        yield i, c, s, parity
+        i, c = i + step_rows, c + step_chunks
+        if c >= per_row:
+            c, i = c - per_row, i + 1
+        s += 1
+        if s == stages:
+            s, parity = 0, parity ^ 1
+
+
+@pytest.mark.parametrize("per_row,stages,grid,total", [
+    (2, 8, 132, 6000), (1, 8, 132, 3000), (7, 8, 132, 7 * 131), (4, 16, 5, 4 * 3), (3, 12, 264, 3)])
+def test_kernel_cursor_matches_item_order(per_row, stages, grid, total):
+    """Stepping by additions gives, for each block's k-th item, the row and
+    chunk of divmod(item, chunks_per_row) and the ring stage k % stages with
+    mbarrier parity (k // stages) & 1, for both splits of the items."""
+    grid = min(grid, total)
+    for blk in range(grid):
+        items = list(tg.block_items(blk, total, grid))
+        walk = list(_cursor_walk(blk, grid, len(items), per_row, stages))
+        assert walk == [(*divmod(it, per_row), k % stages, (k // stages) & 1)
+                        for k, it in enumerate(items)]
+        # The contiguous split the A/B script builds for comparison.
+        base, rem = divmod(total, grid)
+        first, n = blk * base + min(blk, rem), base + (blk < rem)
+        walk = list(_cursor_walk(first, 1, n, per_row, stages))
+        assert [w[:2] for w in walk] == [divmod(it, per_row) for it in range(first, first + n)]
+
+
+def _kernel_route(g, page_rows, page_phys_rows):
+    """The kernel's route() (csrc/gather_rows.cu), modelled in Python: (page,
+    row) of global index g, found without a division."""
+    num_pages = len(page_phys_rows)
+    if num_pages == 1:
+        return 0, min(max(g, 0), page_phys_rows[0] - 1)
+    if not 0 <= g < num_pages * page_rows:
+        return 0, 0
+    p, r = 0, g
+    while r >= page_rows:
+        r, p = r - page_rows, p + 1
+    return p, min(r, page_phys_rows[p] - 1)
+
+
+@pytest.mark.parametrize("page_phys_rows", [(54,), (61, 40), (61, 61, 20), (3, 3, 3, 3)])
+def test_kernel_route_matches_plain(page_phys_rows):
+    """The kernel's division-free routing picks the row the plain version
+    (and so the JAX package) picks, for every index near the pages."""
+    page_rows = 54 if page_phys_rows[0] > 3 else 3
+    pages = tuple(torch.arange(n, dtype=torch.int64)[:, None] * 100 + p
+                  for p, n in enumerate(page_phys_rows))
+    idx = torch.arange(-3 * page_rows, (len(pages) + 3) * page_rows, dtype=torch.int32)
+    idx = torch.cat([idx, torch.tensor([-2 ** 31, 2 ** 31 - 1], dtype=torch.int32)])
+    want = tg.gather_rows_plain(pages, idx, page_rows)[:, 0].tolist()
+    got = [(lambda pr: pr[1] * 100 + pr[0])(_kernel_route(int(g), page_rows, page_phys_rows))
+           for g in idx]
+    assert got == want
+
+
+def test_bulk_plan_shapes_of_the_path():
+    # 3,000 frames of 52,800 B on 132 SMs: a third of a frame a stage,
+    # twelve stages in 211,328 B of shared memory, one block an SM.
+    assert tg.bulk_plan(52_800, 3000, 132) == (17_600, 3, 12, 132, 211_328)
+    # The first rows go out in step: at the start every block is on one of
+    # the first 44 output rows.
+    assert {tg.block_items(j, 9000, 132)[0] // 3 for j in range(132)} == set(range(44))
+    # A chunk that does not divide the row: six of 7,552 B and a 7,488-B tail.
+    chunk, per_row, *_ = tg.bulk_plan(52_800, 3000, 132, max_chunk_bytes=7_552)
+    assert (chunk, per_row, 52_800 - (per_row - 1) * chunk) == (7_552, 7, 7_488)
+
+
+@pytest.mark.parametrize("row_bytes", [0, 8, 52_804])
+def test_bulk_plan_rejects_unaligned_rows(row_bytes):
+    with pytest.raises(ValueError):
+        tg.bulk_plan(row_bytes, 10, 132)
