@@ -1,39 +1,29 @@
 """A/B of the row-gather kernel on one NVIDIA GPU, at the offline-evaluation
-path's shape: this tree's kernel (``csrc/gather_rows.cu``) against an earlier
-design built from its source in the same run.
+path's shape: this tree's kernel (``csrc/gather_rows.cu``) against the
+one-block-per-row design it replaced, built from that design's source in the
+same run, beside ``index_select`` and a contiguous ``copy_``.
 
     python -m cilrs_tpu_torch.bench.gather_ab --baseline OLD_gather_rows.cu [--out FILE]
 
-The baseline is a ``gather_rows.cu`` whose launcher takes the one-block-per-row
-signature ``(page_ptrs, page_phys_rows, num_pages, page_rows, idx, b, out,
-row_bytes, stream)``. The table is the full-size one of ``chip_smoke.py``:
-176,256 random u8 frames of 52,800 B in 2 pages; the indices are the first
-3,000 rows of the seed-42 val split.
+The baseline is the one-block-per-row ``gather_rows.cu``, whose launcher takes
+``(page_ptrs, page_phys_rows, num_pages, page_rows, idx, b, out, row_bytes,
+stream)``. The table is the full-size one of ``chip_smoke.py``: 176,256
+random u8 frames of 52,800 B in 2 pages; the indices are the first 3,000 rows
+of the seed-42 val split.
 
-Timed, in turns (the order, reversed, and so on, five times), each the median
-of 7 rounds of 20 launches queued back to back:
-- the baseline, and the tree's kernel through its wrapper;
-- the tree's kernel source built with other values of its tunables (``-D``:
-  the contiguous split of items, most stages, stores left in flight) or
-  launched under other plans (whole, half, quarter or fifth rows a stage,
-  two blocks an SM);
-- one ``index_select`` and one contiguous ``copy_`` of the same bytes;
-- the gathers again on the path's rows in ascending order and on rows
-  0..2,999 of page 0 (``copy_``'s bytes), to tell the access pattern from the
-  kernel.
-Then each gather at 750-6,000 rows, once, for a line of time against rows
-(a fixed cost a launch and a cost a row), and the host time a call takes to
-issue. Every variant of the tree's kernel is first checked bit-exact against
-the baseline, an independent implementation, on the path's indices and on
-out-of-range and page-edge ones (``chip_smoke.py`` holds the kernel to its
-plain version). Prints one JSON object; ``--out`` writes it to a file too.
+The kernel is first checked bit-exact against the baseline, an independent
+implementation, on the path's indices and on out-of-range and page-edge ones.
+Then the baseline, the kernel, one ``index_select`` and one contiguous
+``copy_`` of the same bytes are timed in turns (the order, reversed, and so
+on, five times), each the median of 7 rounds of 20 launches queued back to
+back, and the host time a call of each gather takes to issue. Prints one JSON
+object; ``--out`` writes it to a file too.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import os
 import subprocess
@@ -52,56 +42,21 @@ from cilrs_tpu_torch.ops import gather as tg
 FULL_FRAMES = 176_256
 ROW_BYTES = 88 * 200 * 3
 ROWS = 3_000
-SWEEP_ROWS = (750, 1500, 3000, 4500, 6000)
 TURNS = 5
-WHOLE, HALF, QUARTER, FIFTH = 53_248, 26_624, 13_312, 10_560
-# The tree's kernel source built with these -D values and launched with these
-# bulk_plan keywords: {name: (defines, plan keywords)}. The wrapper's plan is
-# a third of a frame a stage.
-VARIANTS = {
-    "contiguous_ranges": ({"GATHER_CONTIGUOUS_RANGES": 1}, {}),
-    "contiguous_ranges_whole_rows": ({"GATHER_CONTIGUOUS_RANGES": 1}, {"max_chunk_bytes": WHOLE}),
-    "whole_rows": ({}, {"max_chunk_bytes": WHOLE}),
-    "half_rows": ({}, {"max_chunk_bytes": HALF}),
-    "quarter_rows": ({}, {"max_chunk_bytes": QUARTER}),
-    "fifth_rows": ({}, {"max_chunk_bytes": FIFTH}),
-    "two_blocks_per_sm": ({}, {"blocks_per_sm": 2}),
-    "store_depth_2": ({"GATHER_STORE_DEPTH": 2}, {"store_depth": 2}),
-    "store_depth_3": ({"GATHER_STORE_DEPTH": 3}, {"store_depth": 3}),
-}
 BASELINE_ARGTYPES = [
     ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
     ctypes.c_longlong, ctypes.c_void_p]
 
 
-def build_all(jobs: dict) -> dict:
-    """{name: (source, defines)} -> {name: CDLL}: one nvcc each, all started
-    together, with the tree's flags plus ``-D`` for each define."""
+def build_baseline(src: str):
+    """nvcc of the baseline source with the tree's flags, started beside the
+    tree's own build; returns the process and the library it writes."""
     os.makedirs(build.BUILD_DIR, exist_ok=True)
-    outs, procs = {}, {}
-    for name, (src, defines) in jobs.items():
-        flags = [f"-D{k}={v}" for k, v in sorted(defines.items())]
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
-        out = outs[name] = os.path.join(build.BUILD_DIR, f"ab_{digest}.so")
-        if out not in procs and not os.path.exists(out):  # one build for each distinct library
-            tmp = f"{out}.{os.getpid()}.tmp"
-            procs[out] = (subprocess.Popen(
-                [build.nvcc_path(), *build.NVCC_FLAGS, *flags, "-o", tmp, src],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, name)
-    for out, (proc, tmp, name) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        os.replace(tmp, out)
-    libs = {}
-    for name, out in outs.items():
-        libs[name] = ctypes.CDLL(out)
-        libs[name].gather_rows_launch.restype = ctypes.c_int
-        libs[name].gather_rows_max_pages.restype = ctypes.c_int
-        libs[name].gather_rows_error_string.restype = ctypes.c_char_p
-    return libs
+    out = os.path.join(build.BUILD_DIR, f"ab_baseline_{os.getpid()}.so")
+    proc = subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-o", out, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out
 
 
 def baseline_gather(lib, pages, idx, page_rows):
@@ -126,39 +81,24 @@ def baseline_gather(lib, pages, idx, page_rows):
     return out
 
 
-def planned_gather(lib, pages, idx, page_rows, plan_kw):
-    """A build of the tree's kernel under the launch plan of ``plan_kw``."""
-    dev = pages[0].device
-    row_bytes = pages[0].shape[1] * pages[0].element_size()
-    ptrs, rows = tg._page_table(tuple(pg.data_ptr() for pg in pages),
-                                tuple(pg.shape[0] for pg in pages))
-    out = torch.empty((idx.shape[0], pages[0].shape[1]), dtype=pages[0].dtype, device=dev)
-    plan = tg.bulk_plan(row_bytes, idx.shape[0], tg._num_sms(dev.index), **plan_kw)
-    status = lib.gather_rows_launch(
-        ptrs, rows, len(pages), page_rows, idx.data_ptr(), idx.shape[0], out.data_ptr(),
-        row_bytes, *plan, dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    if status != 0:
-        raise RuntimeError("launch failed: " + lib.gather_rows_error_string(status).decode())
-    return out
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--baseline", required=True, help="an earlier csrc/gather_rows.cu")
+    ap.add_argument("--baseline", required=True, help="the one-block-per-row gather_rows.cu")
     ap.add_argument("--out", help="also write the JSON result here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gather_ab: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    ptxas = build.build(["gather_rows"]).get("gather_rows", "")
-    src = os.path.join(build.CSRC_DIR, "gather_rows.cu")
-    libs = build_all({"baseline": (args.baseline, {}),
-                      **{name: (src, d) for name, (d, _) in VARIANTS.items()}})
-    base_lib = libs.pop("baseline")
+    proc, base_path = build_baseline(args.baseline)
+    build.build(["gather_rows"])
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the baseline:\n{log}")
+    base_lib = ctypes.CDLL(base_path)
     base_lib.gather_rows_launch.argtypes = BASELINE_ARGTYPES
-    for lib in libs.values():
-        lib.gather_rows_launch.argtypes = tg.LAUNCH_ARGTYPES
+    base_lib.gather_rows_launch.restype = ctypes.c_int
+    base_lib.gather_rows_max_pages.restype = ctypes.c_int
 
     num_pages, page_rows, _ = tg.paged_layout(FULL_FRAMES, ROW_BYTES, 0)
     g = torch.Generator(device=dev).manual_seed(42)
@@ -169,81 +109,38 @@ def main(argv=None) -> int:
     cfg = load_train_config()
     lab = make_synthetic_dataset(FULL_FRAMES, seed=42, h=1, w=1)
     _, val_idx = stratified_split(lab, cfg.training.val_fraction, cfg.training.seed)
-    sms = tg._num_sms(dev.index)
-
-    def gathers(idx):
-        """The gathers compared, as functions of no argument, on ``idx``."""
-        local = idx.long() % page_rows
-        fns = {"baseline": lambda: baseline_gather(base_lib, pages, idx, page_rows),
-               "kernel": lambda: tg.gather_rows_paged(pages, idx, page_rows)}
-        for name, (_, kw) in VARIANTS.items():
-            fns[name] = lambda lib=libs[name], kw=kw: planned_gather(lib, pages, idx,
-                                                                     page_rows, kw)
-        fns["index_select"] = lambda: torch.index_select(pages[0], 0, local)
-        return fns
-
     idx = torch.from_numpy(val_idx[:ROWS].astype(np.int32)).to(dev)
     edge = torch.cat([idx[:100], torch.tensor([-1, FULL_FRAMES, page_rows - 1, page_rows,
                                               2 * page_rows + 5], dtype=torch.int32, device=dev)])
     for i in (idx, edge):
-        fns = gathers(i)
-        want = fns["baseline"]()
-        for name, fn in fns.items():
-            if name != "index_select" and not torch.equal(fn(), want):
-                raise AssertionError(f"{name} differs from the baseline")
+        if not torch.equal(tg.gather_rows_paged(pages, i, page_rows),
+                           baseline_gather(base_lib, pages, i, page_rows)):
+            raise AssertionError("the kernel differs from the baseline")
 
-    contiguous = pages[0][:ROWS]
+    contiguous = pages[0][:ROWS]  # the same 158.4 MB, contiguous
     dst = torch.empty_like(contiguous)
-    fns = {**gathers(idx), "copy_": lambda: dst.copy_(contiguous)}
-    first = torch.arange(ROWS, dtype=torch.int32, device=dev)
-    for tag, rows_ in (("sorted_rows", idx.sort().values), ("first_rows", first)):
-        g_ = gathers(rows_)
-        for name in ("baseline", "kernel", "contiguous_ranges", "index_select"):
-            fns[f"{name}_{tag}"] = g_[name]
-
+    local = idx.long() % page_rows
+    fns = {"baseline": lambda: baseline_gather(base_lib, pages, idx, page_rows),
+           "kernel": lambda: tg.gather_rows_paged(pages, idx, page_rows),
+           "index_select": lambda: torch.index_select(pages[0], 0, local),
+           "copy_": lambda: dst.copy_(contiguous)}
     order = list(fns)
     times = {name: [] for name in order}
     for t in range(TURNS):
         for name in (order if t % 2 == 0 else order[::-1]):
             times[name].append(median_ms(fns[name]))
+    medians = {k: float(np.median(v)) for k, v in times.items()}
     result = {
-        "card": card_line(), "device": torch.cuda.get_device_name(0), "sms": sms,
+        "card": card_line(), "device": torch.cuda.get_device_name(0),
         "rows": ROWS, "row_bytes": ROW_BYTES, "pages": num_pages,
         "bound_ms": copy_bound_ms(ROWS * ROW_BYTES), "order": order, "turns_ms": times,
-        "median_ms": {k: float(np.median(v)) for k, v in times.items()},
-        "kernel_plan": tg.bulk_plan(ROW_BYTES, ROWS, sms),
-        "variants": {name: {"defines": d, "plan": tg.bulk_plan(ROW_BYTES, ROWS, sms, **kw)}
-                     for name, (d, kw) in VARIANTS.items()},
-        "ptxas": [ln.strip() for ln in ptxas.splitlines() if "registers" in ln or "spill" in ln
-                  or "smem" in ln],
+        "median_ms": medians,
+        "gbps": {k: 2 * ROWS * ROW_BYTES / (v * 1e-3) / 1e9 for k, v in medians.items()},
+        "kernel_plan": tg.bulk_plan(ROW_BYTES, ROWS, tg._num_sms(dev.index)),
+        "host_us_per_call": {name: host_us_per_call(fns[name])
+                             for name in ("baseline", "kernel", "index_select")},
     }
-    result["gbps"] = {k: 2 * ROWS * ROW_BYTES / (v * 1e-3) / 1e9
-                      for k, v in result["median_ms"].items()}
-
-    # Time against the row count: a line through (B, ms) for each gather
-    # splits its time into a fixed cost a launch and a cost a row.
-    sweep = {}
-    for b in SWEEP_ROWS:
-        g_ = gathers(torch.from_numpy(val_idx[:b].astype(np.int32)).to(dev))
-        dst_b = torch.empty_like(pages[0][:b])
-        fns_b = {name: g_[name] for name in ("baseline", "kernel", "contiguous_ranges",
-                                             "index_select")}
-        fns_b["copy_"] = lambda d=dst_b, b=b: d.copy_(pages[0][:b])
-        sweep[b] = {name: median_ms(fn) for name, fn in fns_b.items()}
-        del dst_b
-    result["rows_sweep_ms"] = sweep
-    result["rows_fit"] = {}
-    for name in sweep[SWEEP_ROWS[0]]:
-        slope, icpt = np.polyfit(np.array(SWEEP_ROWS, dtype=np.float64),
-                                 [sweep[b][name] for b in SWEEP_ROWS], 1)
-        result["rows_fit"][name] = {"fixed_us": icpt * 1e3, "per_row_ns": slope * 1e6,
-                                    "gbps_per_row_cost": 2 * ROW_BYTES / (slope * 1e6)}
-
-    result["host_us_per_call"] = {
-        "kernel_wrapper": host_us_per_call(fns["kernel"]),
-        "kernel_body": host_us_per_call(lambda: tg._gather_rows_cuda(pages, idx, page_rows)),
-        "baseline_body": host_us_per_call(fns["baseline"]),
-        "index_select": host_us_per_call(fns["index_select"])}
+    os.remove(base_path)
     text = json.dumps(result)
     print(text, flush=True)
     if args.out:

@@ -19,16 +19,14 @@
 // Design, for that bound on Hopper:
 // - A persistent grid. The work is B * chunks_per_row items, (row, chunk)
 //   pairs: a third of a 52,800-B frame each at the path's shape. One block per
-//   SM takes items blk, blk + grid, blk + 2 grid, ... (mirrored by
-//   ops/gather.py:block_items), so the counts differ by at most one, no wave
-//   of short blocks leaves SMs idle at the end, and no block pays a start-up
-//   cost per row. Dealing the items round-robin, and not as one contiguous
-//   range a block, keeps the SMs in step over neighbouring output rows, so at
-//   any moment the card writes one window of the output, as a plain copy
-//   does. On contiguous rows that makes the kernel as fast as copy_, where
-//   contiguous ranges were slower than the one-block-per-row kernel this
-//   design replaced (root PERF.md; bench/gather_ab.py builds the contiguous
-//   split with -DGATHER_CONTIGUOUS_RANGES=1 to compare).
+//   SM takes items blk, blk + grid, blk + 2 grid, ..., so the counts differ by
+//   at most one, no wave of short blocks leaves SMs idle at the end, and no
+//   block pays a start-up cost per row. Dealing the items round-robin, and not
+//   as one contiguous range a block, keeps the SMs in step over neighbouring
+//   output rows, so at any moment the card writes one window of the output, as
+//   a plain copy does. On contiguous rows that makes the kernel as fast as
+//   copy_, where contiguous ranges were slower than the one-block-per-row
+//   kernel this design replaced (root PERF.md).
 // - TMA bulk copies through a ring of `stages` chunks in shared memory. One
 //   thread routes each item's index and issues a bulk load into a stage,
 //   tracked by that stage's mbarrier (arrive.expect_tx + complete_tx); once it
@@ -55,23 +53,15 @@
 // comes from ops/gather.py:bulk_plan, where the CPU tests check it.
 // Fusing /255 + normalize into the copy is later work.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #define GATHER_MAX_PAGES 16
 #define GATHER_THREADS 32      // one warp; thread 0 issues every copy
-// Tunables of the ring, fixed at build time. ops/gather.py mirrors the
-// defaults; cilrs_tpu_torch/bench/gather_ab.py builds other values (-D) to
-// compare them on the card.
-#ifndef GATHER_MAX_STAGES
+// The ring's limits; ops/gather.py mirrors them.
 #define GATHER_MAX_STAGES 16
-#endif
-#ifndef GATHER_STORE_DEPTH
 #define GATHER_STORE_DEPTH 1   // bulk stores left in flight before a stage is reloaded
-#endif
-#ifndef GATHER_CONTIGUOUS_RANGES
-#define GATHER_CONTIGUOUS_RANGES 0  // 1: one contiguous range of items a block
-#endif
 #define GATHER_BARRIER_BYTES 128  // mbarriers at the head of shared memory
 #define GATHER_MAX_SMEM 232448    // dynamic shared memory a block may opt in to
 #define GATHER_MAX_DEVICES 64
@@ -178,15 +168,9 @@ gather_rows_kernel(const PageTable pt, int num_pages, long long page_rows,
     const long long grid = gridDim.x, blk = blockIdx.x;
     const long long n = total / grid + (blk < total % grid ? 1 : 0);
     const int cpr = (int)chunks_per_row;
-#if GATHER_CONTIGUOUS_RANGES
-    const long long first = blk * (total / grid) + (blk < total % grid ? blk : total % grid);
-    const long long step = 1;
-#else
-    const long long first = blk, step = grid;
-#endif
-    const long long step_rows = step / cpr;
-    const int step_chunks = (int)(step % cpr);
-    const Cursor start = {first / cpr, (int)(first % cpr), 0, 0u};
+    const long long step_rows = grid / cpr;
+    const int step_chunks = (int)(grid % cpr);
+    const Cursor start = {blk / cpr, (int)(blk % cpr), 0, 0u};
     const int ahead = stages - GATHER_STORE_DEPTH;
 
     // The chunk at cursor t: its byte offset in the row, and its size (the
@@ -253,14 +237,19 @@ extern "C" int gather_rows_launch(const void* const* page_ptrs,
     }
     if (b == 0) return (int)cudaSuccess;
 
-    int prev = 0;
+    // The launch goes to the calling thread's current device, so switch to
+    // `device` for it and switch back only if this call switched.
+    int prev = -1;
     cudaError_t err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-    static bool smem_opted_in[GATHER_MAX_DEVICES] = {};
-    if (err == cudaSuccess && !smem_opted_in[device]) {
+    const bool switched = err == cudaSuccess && prev != device;
+    if (switched) err = cudaSetDevice(device);
+    // Opting in to the large ring is once a device; racing threads at worst
+    // both opt in.
+    static std::atomic<bool> smem_opted_in[GATHER_MAX_DEVICES];  // zeroed: static storage
+    if (err == cudaSuccess && !smem_opted_in[device].load(std::memory_order_acquire)) {
         err = cudaFuncSetAttribute(gather_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    GATHER_MAX_SMEM);
-        smem_opted_in[device] = err == cudaSuccess;
+        if (err == cudaSuccess) smem_opted_in[device].store(true, std::memory_order_release);
     }
     if (err == cudaSuccess) {
         gather_rows_kernel<<<dim3((unsigned)grid), GATHER_THREADS, (size_t)smem_bytes,
@@ -269,7 +258,7 @@ extern "C" int gather_rows_launch(const void* const* page_ptrs,
             chunks_per_row, stages);
         err = cudaGetLastError();
     }
-    if (prev != device) cudaSetDevice(prev);
+    if (switched) cudaSetDevice(prev);
     return (int)err;
 }
 

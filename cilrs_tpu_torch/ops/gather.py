@@ -8,8 +8,8 @@ the requested rows into a fresh ``[B, row_elems]`` tensor.
 On a CUDA tensor the wrapper launches the hand-written kernel of
 ``csrc/gather_rows.cu`` (one launch for all pages) or raises; there is no
 fallback. The kernel is a persistent grid of TMA bulk copies through a ring in
-shared memory; its launch plan is computed here, by ``bulk_plan`` and
-``block_items``, so that the CPU tests can check it. On a CPU tensor the
+shared memory; its launch plan is computed here, by ``bulk_plan``, so that
+the CPU tests can check it. On a CPU tensor the
 wrapper runs ``gather_rows_plain``, the same routing in plain PyTorch, which is
 what the CPU tests hold against the JAX package.
 """
@@ -80,53 +80,39 @@ def gather_rows_plain(pages, idx: torch.Tensor, page_rows: int) -> torch.Tensor:
     return out
 
 
-# The kernel's launch plan. These mirror csrc/gather_rows.cu's #defines
-# (GATHER_MAX_SMEM, GATHER_BARRIER_BYTES, and the defaults of GATHER_MAX_STAGES
-# and GATHER_STORE_DEPTH), which its launcher checks the plan against.
+# The kernel's launch plan. The first four mirror csrc/gather_rows.cu's
+# #defines (GATHER_MAX_SMEM, GATHER_BARRIER_BYTES, GATHER_MAX_STAGES,
+# GATHER_STORE_DEPTH), which its launcher checks the plan against.
 SMEM_MAX_BYTES = 232_448   # dynamic shared memory a block may opt in to on Hopper
 BARRIER_BYTES = 128        # the stages' mbarriers, at the head of shared memory
 MAX_STAGES = 16
 STORE_DEPTH = 1            # bulk stores left in flight before a stage is reloaded
 RING_BYTES = 212_992       # shared memory the ring of stages may take on one SM
 CHUNK_BYTES_MAX = 17_600   # a third of a 52,800-B frame a stage, twelve stages
-BLOCKS_PER_SM = 1
 
 
 @functools.lru_cache(maxsize=64)
-def bulk_plan(row_bytes: int, b: int, num_sms: int, *, max_chunk_bytes: int = CHUNK_BYTES_MAX,
-              blocks_per_sm: int = BLOCKS_PER_SM, max_stages: int = MAX_STAGES,
-              store_depth: int = STORE_DEPTH):
+def bulk_plan(row_bytes: int, b: int, num_sms: int):
     """Launch plan of the gather kernel for ``b`` rows of ``row_bytes`` on a
     card of ``num_sms`` SMs: (chunk_bytes, chunks_per_row, stages, grid,
     smem_bytes).
 
     Each row is cut into ``chunks_per_row`` chunks of ``chunk_bytes`` (the last
     may be shorter), all multiples of 16 B as the bulk copy needs; the ring
-    holds ``stages`` chunks, at least ``store_depth`` + 1 so that a load stays
-    in flight; ``grid`` persistent blocks share the ``b * chunks_per_row``
-    items as ``block_items`` deals them out. The keywords are for measuring
-    other plans, and a kernel built with other values of its tunables
-    (``bench/gather_ab.py``); the wrapper keeps their defaults.
+    holds ``stages`` chunks, more than ``STORE_DEPTH`` so that a load stays
+    in flight; ``grid`` persistent blocks, at most one an SM, share the
+    ``b * chunks_per_row`` items round-robin: block j copies items j,
+    j + grid, j + 2 grid, ..., and item k is chunk ``k % chunks_per_row`` of
+    output row ``k // chunks_per_row``.
     """
     if row_bytes <= 0 or row_bytes % ROW_ALIGN_BYTES:
         raise ValueError(f"row of {row_bytes} B is not a positive multiple of {ROW_ALIGN_BYTES} B")
-    ring = RING_BYTES // blocks_per_sm
-    max_chunk = min(max_chunk_bytes, ring // (store_depth + 1)) // 16 * 16
-    fewest = -(-row_bytes // max_chunk)  # chunks a row needs to fit a stage
+    fewest = -(-row_bytes // CHUNK_BYTES_MAX)  # chunks a row needs to fit a stage
     chunk_bytes = -(-row_bytes // (fewest * 16)) * 16  # an even split, rounded up to 16 B
     chunks_per_row = -(-row_bytes // chunk_bytes)
-    stages = min(max_stages, ring // chunk_bytes)
-    grid = min(num_sms * blocks_per_sm, b * chunks_per_row)
+    stages = min(MAX_STAGES, RING_BYTES // chunk_bytes)
+    grid = min(num_sms, b * chunks_per_row)
     return chunk_bytes, chunks_per_row, stages, grid, BARRIER_BYTES + stages * chunk_bytes
-
-
-def block_items(block: int, total: int, grid: int) -> range:
-    """The items that persistent block ``block`` of ``grid`` copies, in its
-    order, as the kernel deals ``total`` items out: round-robin, so counts
-    differ by at most one and the blocks move in step over neighbouring rows.
-    Item ``k`` is chunk ``k % chunks_per_row`` of output row
-    ``k // chunks_per_row``."""
-    return range(block, total, grid)
 
 
 # gather_rows_launch(page_ptrs, page_phys_rows, num_pages, page_rows, idx, b,
@@ -181,8 +167,7 @@ def _gather_rows_cuda(pages, idx: torch.Tensor, page_rows: int) -> torch.Tensor:
     out = torch.empty((b, pages[0].shape[1]), dtype=pages[0].dtype, device=dev)
     chunk_bytes, chunks_per_row, stages, grid, smem_bytes = bulk_plan(
         row_bytes, b, _num_sms(dev.index))
-    # The raw handle of the current stream, without building a Stream object.
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     status = lib.gather_rows_launch(
         ptrs, rows, len(pages), page_rows, idx.data_ptr(), b, out.data_ptr(), row_bytes,
         chunk_bytes, chunks_per_row, stages, grid, smem_bytes, dev.index, stream)

@@ -45,27 +45,47 @@ def test_gather_kernel_matches_plain(cuda_device, num_pages, dtype):
 
 
 # Edge cases of the persistent grid and the ring: (rows, row width, dtype,
-# pages, B, a launch plan other than the wrapper's).
+# pages, B, chunk bytes). A chunk size other than None is launched through the
+# library directly under that plan; the others go through the wrapper.
 EDGE_CASES = {
-    "b0": (64, 52_800, torch.uint8, 1, 0, {}),
-    "b1": (64, 52_800, torch.uint8, 2, 1, {}),
-    "b_under_sms": (64, 52_800, torch.uint8, 2, 37, {}),
-    "rows_16_bytes": (500, 16, torch.uint8, 2, 3000, {}),
-    "uneven_chunks_52800": (400, 52_800, torch.uint8, 2, 517, {"max_chunk_bytes": 7_552}),
-    "f32_3_pages_4096_bytes": (300, 1024, torch.float32, 3, 3000, {}),
+    "b0": (64, 52_800, torch.uint8, 1, 0, None),
+    "b1": (64, 52_800, torch.uint8, 2, 1, None),
+    "b_under_sms": (64, 52_800, torch.uint8, 2, 37, None),
+    "rows_16_bytes": (500, 16, torch.uint8, 2, 3000, None),
+    "uneven_chunks_52800": (400, 52_800, torch.uint8, 2, 517, 7_552),
+    "uneven_tail_35216": (400, 35_216, torch.uint8, 2, 517, None),
+    "f32_3_pages_4096_bytes": (300, 1024, torch.float32, 3, 3000, None),
 }
 
 
-@pytest.mark.parametrize("case", list(EDGE_CASES))
-def test_gather_kernel_edge_cases(cuda_device, monkeypatch, case):
-    import functools
+def _launch_with_chunk(pages, idx, page_rows, chunk_bytes):
+    """The kernel under a plan of ``chunk_bytes`` chunks, as the wrapper would
+    launch it with its own plan."""
+    lib, _ = tg._library()
+    dev = pages[0].device
+    row_bytes = pages[0].shape[1] * pages[0].element_size()
+    _, _, _, grid, _ = tg.bulk_plan(row_bytes, idx.shape[0], tg._num_sms(dev.index))
+    per_row = -(-row_bytes // chunk_bytes)
+    stages = min(tg.MAX_STAGES, tg.RING_BYTES // chunk_bytes)
+    grid = min(grid, idx.shape[0] * per_row)
+    ptrs, rows = tg._page_table(tuple(p.data_ptr() for p in pages),
+                                tuple(p.shape[0] for p in pages))
+    out = torch.empty((idx.shape[0], pages[0].shape[1]), dtype=pages[0].dtype, device=dev)
+    status = lib.gather_rows_launch(
+        ptrs, rows, len(pages), page_rows, idx.data_ptr(), idx.shape[0], out.data_ptr(),
+        row_bytes, chunk_bytes, per_row, stages, grid, tg.BARRIER_BYTES + stages * chunk_bytes,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    assert status == 0, lib.gather_rows_error_string(status).decode()
+    return out
 
-    rows, width, dtype, num_pages, b, plan = EDGE_CASES[case]
-    if plan:
-        monkeypatch.setattr(tg, "bulk_plan", functools.partial(tg.bulk_plan, **plan))
-        chunk, per_row, *_ = tg.bulk_plan(width * torch.empty((), dtype=dtype).element_size(),
-                                          b, 132)
-        assert per_row * chunk != width  # the last chunk of each row is shorter
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_gather_kernel_edge_cases(cuda_device, case):
+    rows, width, dtype, num_pages, b, chunk_bytes = EDGE_CASES[case]
+    row_bytes = width * torch.empty((), dtype=dtype).element_size()
+    plan_chunk, per_row, *_ = tg.bulk_plan(row_bytes, b, 132)
+    if case.startswith("uneven"):  # the last chunk of each row is shorter
+        assert per_row * (chunk_bytes or plan_chunk) != row_bytes
     g = torch.Generator(device=cuda_device).manual_seed(b)
     page_rows = rows // num_pages
     pages = tuple(torch.randint(0, 256, (page_rows + (3 if p < num_pages - 1 else 0), width),
@@ -73,10 +93,13 @@ def test_gather_kernel_edge_cases(cuda_device, monkeypatch, case):
                   for p in range(num_pages))
     idx = torch.randint(-5, rows + 5, (b,), generator=g, device=cuda_device, dtype=torch.int32)
     before = tg.gather_rows_paged.launches
-    got = tg.gather_rows_paged(pages, idx, page_rows)
+    if chunk_bytes is None:
+        got = tg.gather_rows_paged(pages, idx, page_rows)
+    else:
+        got = _launch_with_chunk(pages, idx, page_rows, chunk_bytes)
     torch.cuda.synchronize()
     assert got.shape == (b, width) and got.dtype == dtype
-    assert tg.gather_rows_paged.launches == before + (1 if b else 0)
+    assert tg.gather_rows_paged.launches == before + (1 if b and chunk_bytes is None else 0)
     want = tg.gather_rows_plain(tuple(p.cpu() for p in pages), idx.cpu(), page_rows)
     assert torch.equal(got.cpu(), want)
 

@@ -195,36 +195,37 @@ def test_plan_constants_match_kernel(define, value):
     assert int(re.search(rf"#define {define} (\d+)", _kernel_source()).group(1)) == value
 
 
-# Launch plans: the wrapper's own, and the others the A/B script times (half
-# rows a stage; two blocks an SM; a chunk that does not divide the row).
-PLAN_VARIANTS = {"default": {}, "half_rows": {"max_chunk_bytes": 26_624},
-                 "two_blocks_per_sm": {"blocks_per_sm": 2},
-                 "uneven_chunks": {"max_chunk_bytes": 7_552}}
+def block_items(block: int, total: int, grid: int) -> range:
+    """The items persistent block ``block`` of ``grid`` copies, in its order,
+    as the kernel (csrc/gather_rows.cu) deals ``total`` items out:
+    round-robin. Item k is chunk k % chunks_per_row of output row
+    k // chunks_per_row."""
+    return range(block, total, grid)
 
 
-@pytest.mark.parametrize("variant", list(PLAN_VARIANTS))
+# SM counts: the H100 SXM's 132 and PCIe's 114, and small grids that leave
+# blocks with uneven counts.
+@pytest.mark.parametrize("num_sms", [132, 114, 16, 1])
 @pytest.mark.parametrize("b", [0, 1, 131, 3000])
 @pytest.mark.parametrize("row_bytes", [16, 4096, 52_800, 53_248])
-def test_bulk_plan_covers_every_chunk_once(row_bytes, b, variant):
+def test_bulk_plan_covers_every_chunk_once(row_bytes, b, num_sms):
     """The kernel's work split, walked in Python: chunks tile each row
     exactly in multiples of 16 B, the ring fits in shared memory, the grid is
     no larger than the item count, and the blocks' items cover every
     (row, chunk) pair exactly once with counts differing by at most one."""
-    kw = PLAN_VARIANTS[variant]
-    num_sms = 132
-    chunk, per_row, stages, grid, smem = tg.bulk_plan(row_bytes, b, num_sms, **kw)
+    chunk, per_row, stages, grid, smem = tg.bulk_plan(row_bytes, b, num_sms)
     spans = [min(chunk, row_bytes - c * chunk) for c in range(per_row)]
     assert chunk % 16 == 0 and all(s > 0 and s % 16 == 0 for s in spans)
     assert sum(spans) == row_bytes
     assert tg.STORE_DEPTH < stages <= tg.MAX_STAGES
     assert smem == tg.BARRIER_BYTES + stages * chunk <= tg.SMEM_MAX_BYTES
-    assert stages * chunk * kw.get("blocks_per_sm", tg.BLOCKS_PER_SM) <= tg.RING_BYTES
+    assert stages * chunk <= tg.RING_BYTES
     total = b * per_row
-    assert grid <= total and grid <= num_sms * kw.get("blocks_per_sm", tg.BLOCKS_PER_SM)
+    assert grid <= total and grid <= num_sms
     assert (grid >= 1) == (total >= 1)
     seen, sizes = [], []
     for blk in range(grid):
-        items = tg.block_items(blk, total, grid)
+        items = block_items(blk, total, grid)
         # The kernel's count and its k-th item (csrc/gather_rows.cu).
         n = total // grid + (blk < total % grid)
         assert list(items) == [blk + k * grid for k in range(n)]
@@ -256,18 +257,13 @@ def _cursor_walk(first, step, n, per_row, stages):
 def test_kernel_cursor_matches_item_order(per_row, stages, grid, total):
     """Stepping by additions gives, for each block's k-th item, the row and
     chunk of divmod(item, chunks_per_row) and the ring stage k % stages with
-    mbarrier parity (k // stages) & 1, for both splits of the items."""
+    mbarrier parity (k // stages) & 1."""
     grid = min(grid, total)
     for blk in range(grid):
-        items = list(tg.block_items(blk, total, grid))
+        items = list(block_items(blk, total, grid))
         walk = list(_cursor_walk(blk, grid, len(items), per_row, stages))
         assert walk == [(*divmod(it, per_row), k % stages, (k // stages) & 1)
                         for k, it in enumerate(items)]
-        # The contiguous split the A/B script builds for comparison.
-        base, rem = divmod(total, grid)
-        first, n = blk * base + min(blk, rem), base + (blk < rem)
-        walk = list(_cursor_walk(first, 1, n, per_row, stages))
-        assert [w[:2] for w in walk] == [divmod(it, per_row) for it in range(first, first + n)]
 
 
 def _kernel_route(g, page_rows, page_phys_rows):
@@ -305,10 +301,10 @@ def test_bulk_plan_shapes_of_the_path():
     assert tg.bulk_plan(52_800, 3000, 132) == (17_600, 3, 12, 132, 211_328)
     # The first rows go out in step: at the start every block is on one of
     # the first 44 output rows.
-    assert {tg.block_items(j, 9000, 132)[0] // 3 for j in range(132)} == set(range(44))
-    # A chunk that does not divide the row: six of 7,552 B and a 7,488-B tail.
-    chunk, per_row, *_ = tg.bulk_plan(52_800, 3000, 132, max_chunk_bytes=7_552)
-    assert (chunk, per_row, 52_800 - (per_row - 1) * chunk) == (7_552, 7, 7_488)
+    assert {block_items(j, 9000, 132)[0] // 3 for j in range(132)} == set(range(44))
+    # A chunk that does not divide the row: two of 11,744 B and an 11,728-B tail.
+    chunk, per_row, *_ = tg.bulk_plan(35_216, 3000, 132)
+    assert (chunk, per_row, 35_216 - (per_row - 1) * chunk) == (11_744, 3, 11_728)
 
 
 @pytest.mark.parametrize("row_bytes", [0, 8, 52_804])
