@@ -15,14 +15,28 @@ end to end at the full width of the repo's model (CILRS, ResNet-34 trunk,
      registers and shared memory;
   2. the normal entry point: a synthetic session on disk and a .pth policy go
      through ``python -m cilrs_tpu_torch.cli.report``'s main();
-  3. full size: a 176,256-frame u8 table on the card (9.31 GB, 2 pages), the
+  3. train_cli: the same session trained for 2 epochs through ``python -m
+     cilrs_tpu_torch.cli.train``'s main() (history, latest and best slots,
+     best_epoch.txt, gather launches), resumed for a third epoch, and the best
+     slot scored by the report CLI: collect -> train -> report on the card;
+  4. full size: a 176,256-frame u8 table on the card (9.31 GB, 2 pages), the
      seed-42 val split evaluated with collect_predictions_resident at batch
      120 and 25 batches a gather; kernel / plain / index_select timings at the
      path's 3,000-row gather beside a contiguous copy_ of the same bytes (the
      practical ceiling of a copy on the card) and the HBM bound, the kernel's
      GB/s, and the host microseconds a call of the wrapper and of
      index_select takes to issue; frames per second; the card's bf16 forward
-     on 8 frames against the same weights in float32 on the CPU.
+     on 8 frames against the same weights in float32 on the CPU;
+  5. train_step_check: the train step's loss parts and gradients on the card
+     against float32 on the CPU, same weights and 120 frames of the table
+     (bf16 with eval-mode and train-mode BatchNorm, float32 in train mode);
+     the augmentation on the card against the CPU on the same draws;
+  6. train_full_size: ``train.loop.train`` from that table for 2 epochs of
+     100 steps (augmentation, dropout 0.5, EMA, epoch eval over the whole val
+     split), every train and eval group gathered by the kernel (launches
+     counted); train frames/s and ms a step through the loop's group function
+     after a warm-up group, peak memory, one train group under the profiler,
+     and the kernel at an eval group's 6,000 rows against its bound.
 
 Prints one JSON line per phase, then the kernels line, the card's name and
 power limit, and last {"ok": true, "device": {...}}. A failed phase ends the
@@ -31,6 +45,7 @@ run with a non-zero exit and no ok line; so does a machine without CUDA.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import math
@@ -39,21 +54,30 @@ import sys
 import tempfile
 import time
 import traceback
+import warnings
 
 import numpy as np
 import torch
 
 from cilrs_tpu_torch.bench.timing import card_line, copy_bound_ms, host_us_per_call, median_ms
 from cilrs_tpu_torch.cli import report as report_cli
+from cilrs_tpu_torch.cli import train as train_cli
 from cilrs_tpu_torch.config import load_train_config
-from cilrs_tpu_torch.data.dataset import make_synthetic_dataset, save_session, stratified_split
+from cilrs_tpu_torch.data.dataset import (WeightedBatchSampler, load_sessions,
+                                          make_synthetic_dataset, save_session, stratified_split)
+from cilrs_tpu_torch.data.resident import gather_group, labels_dataset
 from cilrs_tpu_torch.evaluation.report import GROUP_BATCHES, collect_predictions_resident
 from cilrs_tpu_torch.models.cilrs import CILRS
+from cilrs_tpu_torch.models.losses import cilrs_loss
 from cilrs_tpu_torch.ops.build import build
 from cilrs_tpu_torch.ops.gather import (bulk_plan, gather_rows_paged, gather_rows_plain,
                                         paged_layout)
-from cilrs_tpu_torch.ops.image import normalize
+from cilrs_tpu_torch.ops.image import apply_augment, draw_augment, normalize
+from cilrs_tpu_torch.train import checkpoint as ckpt_mod
 from cilrs_tpu_torch.train.checkpoint import load_policy, save_checkpoint_pth
+from cilrs_tpu_torch.train.loop import EVAL_GROUP_BATCHES, STEPS_PER_CALL, train, train_group
+from cilrs_tpu_torch.train.state import create_train_state
+from cilrs_tpu_torch.train.steps import make_train_step
 
 FULL_FRAMES = 176_256
 FRAME_SHAPE = (88, 200, 3)
@@ -67,6 +91,39 @@ EVAL_PASSES = 3
 # frames and features) still fails a wrong layout or a wrong weight outright.
 FWD_REL_TOL = 0.05
 FWD_MIN_CORR = 0.99
+# The train step on the card against float32 on the CPU, same weights and
+# batch, as three comparisons of the loss parts (relative error) and the
+# flattened gradient (cosine). The phase also measures the CPU against itself
+# ("cpu_against_itself"), the floor each tolerance rests on:
+#  - eval-mode BatchNorm, card bf16: the trunk's backward is then a linear
+#    map of the output gradient, and bf16's 8 significant bits leave the
+#    gradient about 1% off (bf16 autocast on the CPU: cosine 0.99991); a
+#    cosine above 0.99 still fails a wrong layout, weight or loss term;
+#  - train-mode BatchNorm, card float32 (TF32 off): at a random init the
+#    backward through 36 train-mode BatchNorms amplifies rounding (the
+#    gradient explosion of BatchNorm networks at init): float32 on the CPU
+#    with another reduction order agrees at cosine 0.99990, loss parts within
+#    3e-4. Held to 0.99 and 1e-3;
+#  - train-mode BatchNorm, card bf16, the step as it trains: the same
+#    amplification of bf16's rounding leaves bf16 autocast on the CPU at
+#    cosine 0.91; held to 0.7, a sanity bound that a layout or sign fault
+#    (cosine near 0) still fails. The loss parts, means over 120 frames of
+#    outputs within FWD_REL_TOL of their scale, are held to 5%.
+# (Floors as this phase read them on an H100 machine's CPU, full width, 120
+# frames; PERF.md has the run.)
+STEP_REL_TOL = 0.05
+F32_REL_TOL = 1e-3
+GRAD_MIN_COS = {"eval_bn_bf16": 0.99, "train_bn_f32": 0.99, "train_bn_bf16": 0.7}
+# The augmentation on the card against the CPU on the same draws, as
+# tests/test_torch_augment.py holds the CPU to the JAX package: at most 1e-4
+# of the values may differ by more than 1e-5 (hue-sector boundaries).
+AUG_ATOL = 1e-5
+AUG_MAX_SHARE = 1e-4
+SESSION_NAME = "session_000"
+TRAIN_EPOCHS = 2
+TRAIN_STEPS = 100  # steps an epoch of train_full_size
+TIMED_GROUPS = 4
+EVAL_GROUP_ROWS = BATCH * EVAL_GROUP_BATCHES  # 6,000
 
 
 def emit(obj: dict):
@@ -139,7 +196,7 @@ def phase_build_and_check(dev) -> dict:
 def phase_cli(dev, workdir: str) -> tuple[dict, str]:
     cfg = load_train_config()
     ds = make_synthetic_dataset(SESSION_FRAMES, seed=0)
-    session = os.path.join(workdir, "session_000")
+    session = os.path.join(workdir, SESSION_NAME)
     save_session(session, ds)
     torch.manual_seed(0)
     model = CILRS(num_commands=cfg.model.num_commands, dropout=cfg.model.dropout,
@@ -184,7 +241,7 @@ def _leaves(d):
         yield float(d)
 
 
-def phase_full_size(dev, ckpt: str) -> tuple[dict, dict]:
+def phase_full_size(dev, ckpt: str) -> tuple:
     cfg = load_train_config()
     num_pages, page_rows, _ = paged_layout(FULL_FRAMES, ROW_BYTES, 0)
     g = torch.Generator(device=dev).manual_seed(42)
@@ -220,7 +277,8 @@ def phase_full_size(dev, ckpt: str) -> tuple[dict, dict]:
         if pred.shape != (len(val_idx), 4) or not np.all(np.isfinite(pred)):
             raise AssertionError(f"predictions {pred.shape}, finite={np.all(np.isfinite(pred))}")
     wall = float(np.median(walls))
-    profile = profile_group(model, table, labels, val_idx[:BATCH * GROUP_BATCHES], cfg)
+    profile = profile_device(lambda: collect_predictions_resident(
+        model, table, labels, val_idx[:BATCH * GROUP_BATCHES], BATCH, cfg), BATCH * GROUP_BATCHES)
 
     # The path's gather: 3,000 val rows across both 4.65 GB pages.
     b = BATCH * GROUP_BATCHES
@@ -287,29 +345,273 @@ def phase_full_size(dev, ckpt: str) -> tuple[dict, dict]:
               "launches": launches, "max_abs_err": err, "ms": kernel_ms, "kernel_ms": kernel_ms,
               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
               "library_ms": library_ms}
-    return line, kernel
+    return line, kernel, table, labels, val_idx
 
 
-def profile_group(model, table, labels, rows, cfg) -> dict:
-    """Device time by kernel over one group (25 batches) under torch.profiler:
-    the busy share of the group's wall time and the largest kernels."""
+def profile_device(fn, rows: int) -> dict:
+    """Device time by kernel over one call of ``fn`` (one group of ``rows``
+    frames) under torch.profiler: the busy share of the call's wall time and
+    the largest kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        collect_predictions_resident(model, table, labels, rows, BATCH, cfg)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    kernels = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    # Device activity by name; a record_function range (Adam's step is one)
+    # spans kernels already counted, so user annotations are left out.
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+              and not getattr(e, "is_user_annotation", False)]
+    kernels = [(e.key, e.self_device_time_total / 1e3) for e in events]
     busy_ms = sum(ms for _, ms in kernels)
     if busy_ms == 0:
         return {"device_time": "not measured (the profiler saw no device time)"}
-    gather_ms = sum(ms for k, ms in kernels if "gather_rows_kernel" in k)
+    gather_ms = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+                    if "gather_rows_kernel" in e.key)
     top = sorted(kernels, key=lambda kv: -kv[1])[:6]
-    return {"rows": len(rows), "wall_ms_under_profiler": wall_ms, "device_busy_ms": busy_ms,
+    return {"rows": rows, "wall_ms_under_profiler": wall_ms, "device_busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms, "gather_kernel_ms": gather_ms,
+            "device_activities": sum(e.count for e in events),
             "top_kernels_ms": [[k[:80], ms] for k, ms in top]}
+
+
+def phase_train_cli(dev, workdir: str) -> dict:
+    """collect -> train -> resume -> report through the CLIs, at full width
+    on the 3,000-frame session of phase cli_report."""
+    cfg = load_train_config()
+    session = os.path.join(workdir, SESSION_NAME)
+    run = os.path.join(workdir, "run")
+    train_idx, val_idx = stratified_split(load_sessions([session]), cfg.training.val_fraction,
+                                          cfg.training.seed)
+    spe = max(1, len(train_idx) // BATCH)
+    per_epoch = -(-spe // STEPS_PER_CALL) + 2 * -(-max(1, len(val_idx) // BATCH) // EVAL_GROUP_BATCHES)
+
+    gather_rows_paged.launches = 0
+    t0 = time.time()
+    out = train_cli.main(["--data", session, "--ckpt-dir", run, "--epochs", "2"])
+    wall = time.time() - t0
+    launches = gather_rows_paged.launches
+    if launches != 2 * per_epoch:
+        raise AssertionError(f"{launches} gather launches in 2 epochs, expected {2 * per_epoch}")
+    hist = out["history"]
+    if [h["epoch"] for h in hist] != [1, 2] or not all(
+            math.isfinite(h[k]) for h in hist for k in ("train_loss", "val_loss", "val_loss_raw")):
+        raise AssertionError(f"history {hist}")
+    with open(os.path.join(run, "training_history.csv")) as f:
+        lines = f.read().splitlines()
+    if lines[0].split(",") != list(hist[0]) or len(lines) != 3:
+        raise AssertionError(f"training_history.csv: {lines}")
+    latest = sorted(os.listdir(os.path.join(run, ckpt_mod.LATEST_DIR)))
+    if latest != ["checkpoint_epoch_0002.pth"]:
+        raise AssertionError(f"latest slot holds {latest}")
+    best = os.path.join(run, ckpt_mod.BEST_NAME)
+    with open(os.path.join(run, "best_epoch.txt")) as f:
+        best_epoch = int(f.read().split()[0])
+    if not os.path.exists(best) or best_epoch not in (1, 2):
+        raise AssertionError(f"best slot missing or best epoch {best_epoch}")
+
+    t1 = time.time()
+    resumed = train_cli.main(["--data", session, "--ckpt-dir", run, "--epochs", "3", "--resume"])
+    resume_wall = time.time() - t1
+    if [h["epoch"] for h in resumed["history"]] != [3] or resumed["state"].step != 3 * spe:
+        raise AssertionError(f"resume: history {resumed['history']}, step {resumed['state'].step}")
+
+    report_path = os.path.join(workdir, "evaluation_report_trained.json")
+    report = report_cli.main(["--data", session, "--checkpoint", best, "--out", report_path])
+    if report["num_samples"] != len(val_idx) or not all(
+            math.isfinite(v) for k in ("steer", "throttle", "brake", "speed")
+            for v in _leaves(report[k])):
+        raise AssertionError(f"report on the best slot: {report['num_samples']} samples")
+    return {"phase": "train_cli", "ok": True, "frames": SESSION_FRAMES,
+            "train_rows": len(train_idx), "val_rows": len(val_idx), "steps_per_epoch": spe,
+            "gather_launches_2_epochs": launches, "train_wall_s": wall,
+            "resume_wall_s": resume_wall, "history": hist + resumed["history"],
+            "best_epoch": best_epoch, "report_steer_mae": report["steer"]["mae"]}
+
+
+def phase_train_step_check(dev, table: dict, val_idx: np.ndarray) -> dict:
+    """The train step's loss parts and gradients on the card against the same
+    weights in float32 on the CPU (see GRAD_MIN_COS): full width, dropout 0,
+    no augmentation, 120 frames gathered from the table. Then the
+    augmentation on the card against the CPU on the same draws."""
+    cfg = load_train_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout=0.0))
+    card_bf16 = create_train_state(cfg, 0, device=dev).model
+    weights = {k: v.detach().cpu().clone() for k, v in card_bf16.state_dict().items()}
+
+    def f32_model():
+        return CILRS(num_commands=cfg.model.num_commands, dropout=0.0, dtype=torch.float32,
+                     stage_sizes=tuple(cfg.model.stage_sizes), speed_skip=cfg.model.speed_skip)
+
+    card_f32 = f32_model().to(dev, memory_format=torch.channels_last)
+    cpu_f32 = f32_model()
+    batch = gather_group(table, val_idx[None, :BATCH])
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+
+    def loss_and_grads(model, b, train: bool):
+        model.load_state_dict(weights)  # the same weights and BN statistics every time
+        model.zero_grad(set_to_none=True)
+        x = normalize(b["images"].float() / 255.0)
+        controls, pred_speed = model.train(train)(x, b["speed"], b["command"])
+        total, parts = cilrs_loss(controls, pred_speed, b["controls"], b["speed"], cfg.loss)
+        total.backward()
+        return ({k: v.item() for k, v in parts.items()},
+                torch.cat([p.grad.double().flatten().cpu() for p in model.parameters()]))
+
+    def compare(parts, g, ref_parts, ref_g):
+        return {"loss_rel_err": max(abs(parts[k] - ref_parts[k]) / max(abs(ref_parts[k]), 1e-12)
+                                    for k in parts),
+                "grad_cosine": float(g @ ref_g / (g.norm() * ref_g.norm())),
+                "grad_rel_l2": float((g - ref_g).norm() / ref_g.norm())}
+
+    checks, cpu_floor, refs = {}, {}, {}
+    for train in (False, True):
+        refs[train] = loss_and_grads(cpu_f32, cpu_batch, train)
+    for name, model, train in (("eval_bn_bf16", card_bf16, False), ("train_bn_f32", card_f32, True),
+                               ("train_bn_bf16", card_bf16, True)):
+        parts, g = loss_and_grads(model, batch, train)
+        checks[name] = {"loss_parts": parts, "loss_parts_cpu_f32": refs[train][0],
+                        **compare(parts, g, *refs[train])}
+    # The CPU's own agreement with itself, the floor the tolerances rest on:
+    # bf16 autocast on the CPU, and float32 with another reduction order
+    # (channels_last, half the threads).
+    cpu_bf16 = CILRS(num_commands=cfg.model.num_commands, dropout=0.0, dtype=torch.bfloat16,
+                     stage_sizes=tuple(cfg.model.stage_sizes), speed_skip=cfg.model.speed_skip)
+    cpu_bf16 = cpu_bf16.to(memory_format=torch.channels_last)
+    for train in (False, True):
+        mode = "train_bn" if train else "eval_bn"
+        cpu_floor[f"{mode}_bf16_autocast"] = compare(*loss_and_grads(cpu_bf16, cpu_batch, train),
+                                                     *refs[train])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // 2))
+    try:
+        cpu_floor["train_bn_f32_other_order"] = compare(*loss_and_grads(
+            cpu_f32.to(memory_format=torch.channels_last), cpu_batch, True), *refs[True])
+    finally:
+        torch.set_num_threads(threads)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x01 = batch["images"].float() / 255.0
+    draws = draw_augment(gen, BATCH, *FRAME_SHAPE[:2])
+    card_aug = apply_augment(x01, draws)
+    cpu_aug = apply_augment(x01.cpu(), {k: v.cpu() for k, v in draws.items()})
+    diff = (card_aug.cpu() - cpu_aug).abs()
+    aug_bad_share = float((diff > AUG_ATOL).float().mean())
+    augment_ms = median_ms(lambda: apply_augment(x01, draws), reps=10, rounds=5)
+    line = {"phase": "train_step_check", "ok": True, "frames": BATCH, "checks": checks,
+            "cpu_against_itself": cpu_floor,
+            "grad_elems": sum(p.numel() for p in cpu_f32.parameters()),
+            "augment_max_abs_err": float(diff.max()), "augment_bad_share": aug_bad_share,
+            "augment_ms_batch_120": augment_ms,
+            "augment_applied": {k: int(v.sum()) for k, v in draws.items() if k.startswith("apply")},
+            "tolerance": {"loss_rel": STEP_REL_TOL, "loss_rel_f32": F32_REL_TOL,
+                          "grad_cos": GRAD_MIN_COS, "augment_atol": AUG_ATOL,
+                          "augment_share": AUG_MAX_SHARE}}
+    emit(line)  # the readings first, so a failed check still shows them
+    for name, c in checks.items():
+        rel_tol = F32_REL_TOL if name == "train_bn_f32" else STEP_REL_TOL
+        if not (c["loss_rel_err"] <= rel_tol and c["grad_cosine"] >= GRAD_MIN_COS[name]):
+            raise AssertionError(f"card train step vs float32 CPU, {name}: {c['loss_rel_err']}, "
+                                 f"cosine {c['grad_cosine']}")
+    if aug_bad_share > AUG_MAX_SHARE:
+        raise AssertionError(f"card augmentation vs CPU: {aug_bad_share} of values beyond {AUG_ATOL}")
+    return line
+
+
+def phase_train_full_size(dev, table: dict, labels: dict, val_idx: np.ndarray) -> tuple[dict, dict]:
+    """train() from the 9.31 GB 2-page table: full-width CILRS, batch 120,
+    augmentation, dropout 0.5 and the EMA on, TRAIN_EPOCHS epochs of
+    TRAIN_STEPS steps, epoch eval over the whole val split. Then train
+    frames/s through the loop's group function, one train group under the
+    profiler, and the gather at an eval group's 6,000 rows."""
+    cfg = load_train_config()
+    cfg = dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, epochs=TRAIN_EPOCHS))
+    ds = labels_dataset(labels)
+    val_batches = len(val_idx) // BATCH
+    want_launches = TRAIN_EPOCHS * (-(-TRAIN_STEPS // STEPS_PER_CALL)
+                                    + 2 * -(-val_batches // EVAL_GROUP_BATCHES))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gather_rows_paged.launches = 0
+    t0 = time.time()
+    out = train(ds, cfg, device=dev, steps_per_epoch=TRAIN_STEPS, resident=table)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = gather_rows_paged.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches != want_launches:
+        raise AssertionError(f"{launches} gather launches, expected {want_launches}")
+    groups = out["group_losses"]
+    hist = out["history"]
+    if not (all(math.isfinite(v) for v in groups) and all(
+            math.isfinite(h[k]) for h in hist for k in ("train_loss", "val_loss", "val_loss_raw"))):
+        raise AssertionError(f"non-finite losses: groups {groups}, history {hist}")
+    if not groups[-1] < groups[0]:
+        raise AssertionError(f"last group's mean train loss {groups[-1]} not under the first's {groups[0]}")
+
+    # Train frames/s through the loop's group function, after a warm-up group.
+    state = out["state"]
+    train_step = make_train_step(cfg)
+    train_idx, _ = stratified_split(ds, cfg.training.val_fraction, cfg.training.seed)
+    sampler = WeightedBatchSampler(ds.command[train_idx], BATCH, 1, controls=ds.controls[train_idx])
+    its = train_idx[np.stack(list(sampler.epoch(STEPS_PER_CALL * (TIMED_GROUPS + 2))))]
+    grps = its.reshape(TIMED_GROUPS + 2, STEPS_PER_CALL, BATCH)
+    train_group(state, table, grps[0], 1, train_step)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    for g in grps[1:1 + TIMED_GROUPS]:
+        train_group(state, table, g, 1, train_step)
+    torch.cuda.synchronize()
+    timed = time.time() - t1
+    frames = TIMED_GROUPS * STEPS_PER_CALL * BATCH
+    profile = profile_device(lambda: train_group(state, table, grps[-1], 1, train_step),
+                             STEPS_PER_CALL * BATCH)
+    # One more group with CUDA's sync checker on: inside a group the loop
+    # never waits for the card (the losses stay there until the epoch ends).
+    # The host clock over it, which stops before the closing synchronise, is
+    # the time the host takes to issue the group's work.
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t2 = time.perf_counter()
+            train_group(state, table, grps[1], 1, train_step)
+            issue_ms = (time.perf_counter() - t2) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = sorted({str(w.message)[:160] for w in caught
+                    if "called a synchronizing" in str(w.message)})
+    if syncs:
+        raise AssertionError(f"the train group waits for the card: {syncs}")
+
+    # The gather at an eval group's 6,000 rows across both pages.
+    pages, page_rows = table["images"], table["page_rows"]
+    idx = torch.from_numpy(val_idx[:EVAL_GROUP_ROWS].astype(np.int32)).to(dev)
+    err = kernel_vs_plain(pages, idx, page_rows)
+    kernel_ms = median_ms(functools.partial(gather_rows_paged, pages, idx, page_rows))
+    plain_ms = median_ms(lambda: gather_rows_plain(pages, idx, page_rows))
+    local = idx.long() % page_rows
+    library_ms = median_ms(functools.partial(torch.index_select, pages[0], 0, local))
+    bound_ms = copy_bound_ms(EVAL_GROUP_ROWS * ROW_BYTES)
+    line = {"phase": "train_full_size", "ok": True, "frames": FULL_FRAMES, "pages": len(pages),
+            "batch": BATCH, "epochs": TRAIN_EPOCHS, "steps_per_epoch": TRAIN_STEPS,
+            "val_rows": len(val_idx), "gather_launches": launches,
+            "expected_launches": want_launches, "train_wall_s": wall, "history": hist,
+            "group_losses": groups, "peak_mem_bytes": peak,
+            "timed_groups": TIMED_GROUPS, "train_frames_per_s": frames / timed,
+            "ms_per_step": timed * 1e3 / (TIMED_GROUPS * STEPS_PER_CALL),
+            "host_issue_ms_per_step": issue_ms / STEPS_PER_CALL, "host_syncs_in_group": 0,
+            "profile_one_train_group": profile,
+            "gather_6000": {"rows": EVAL_GROUP_ROWS, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                            "index_select_ms": library_ms, "bound_ms": bound_ms,
+                            "kernel_ms_over_bound_ms": kernel_ms / bound_ms,
+                            "max_abs_err": err}}
+    return line, {"launches": launches, "max_abs_err": err, "ms_6000_rows": kernel_ms,
+                  "plain_ms_6000_rows": plain_ms, "library_ms_6000_rows": library_ms,
+                  "bound_ms_6000_rows": bound_ms}
 
 
 def main() -> int:
@@ -326,10 +628,22 @@ def main() -> int:
             phase = "cli_report"
             line, ckpt = phase_cli(dev, workdir)
             emit(line)
+            phase = "train_cli"
+            emit(phase_train_cli(dev, workdir))
             phase = "full_size"
-            line, kernel = phase_full_size(dev, ckpt)
+            line, kernel, table, labels, val_idx = phase_full_size(dev, ckpt)
             emit(line)
+        phase = "train_step_check"
+        phase_train_step_check(dev, table, val_idx)
+        phase = "train_full_size"
+        line, train_kernel = phase_train_full_size(dev, table, labels, val_idx)
+        emit(line)
         phase = "report"
+        kernel["launches_by_path"] = {"eval_full_size": kernel["launches"],
+                                      "train_full_size": train_kernel.pop("launches")}
+        kernel["launches"] = sum(kernel["launches_by_path"].values())
+        kernel["max_abs_err"] = max(kernel["max_abs_err"], train_kernel.pop("max_abs_err"))
+        kernel.update(train_kernel)
         emit({"kernels": [kernel]})
         print(card_line(), flush=True)
     except Exception as e:  # a failed phase ends the run: report it, no ok line

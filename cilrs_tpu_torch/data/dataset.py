@@ -3,7 +3,9 @@
 numpy code, copied so that its indices are bit-identical to the JAX package's:
 session loading (measurements.csv plus npz shards or image files, with the
 uncompressed ``.cache.npz`` sidecar), the seed-42 per-command stratified split,
-and the synthetic dataset. ``save_session`` writes the format the loader reads.
+the inverse-frequency ``command_weights`` and the ``WeightedBatchSampler`` over
+them, and the synthetic dataset. ``save_session`` writes the format the
+loader reads.
 """
 
 from __future__ import annotations
@@ -129,6 +131,48 @@ def stratified_split(ds: DriveDataset, val_fraction: float = 0.15, seed: int = 4
         val_idx.append(idx[:n_val])
         train_idx.append(idx[n_val:])
     return np.concatenate(train_idx), np.concatenate(val_idx)
+
+
+def command_weights(
+    command: np.ndarray,
+    controls: np.ndarray | None = None,
+    hard_boost: float = 0.0,
+) -> np.ndarray:
+    """Inverse-frequency per-sample weights (WeightedRandomSampler parity).
+
+    With hard_boost > 0, big-steer (|steer| > 0.1) and braking (brake > 0.05)
+    frames additionally get (1 + boost)x weight. The reference's sampler is
+    command-only (boost 0).
+    """
+    counts = np.bincount(command, minlength=4).astype(np.float64)
+    counts = np.maximum(counts, 1.0)
+    w = (1.0 / counts)[command]
+    if controls is not None and hard_boost > 0.0:
+        hard = (np.abs(controls[:, 0]) > 0.1) | (controls[:, 2] > 0.05)
+        w = w * (1.0 + hard_boost * hard)
+    return (w / w.sum()).astype(np.float64)
+
+
+class WeightedBatchSampler:
+    """Oversampling batch index generator matching WeightedRandomSampler
+    (with replacement, weighted by inverse command frequency)."""
+
+    def __init__(self, command: np.ndarray, batch_size: int, seed: int = 42,
+                 controls: np.ndarray | None = None, hard_boost: float = 0.0):
+        self.p = command_weights(command, controls, hard_boost)
+        self.n = len(command)
+        self.batch_size = batch_size
+        self.rng = np.random.RandomState(seed)
+
+    def __call__(self) -> np.ndarray:
+        return self.rng.choice(self.n, size=self.batch_size, replace=True, p=self.p)
+
+    def epoch(self, steps: int):
+        # One vectorized draw per epoch: np.random.choice with `p` rebuilds
+        # the CDF on every call.
+        idx = self.rng.choice(self.n, size=steps * self.batch_size,
+                              replace=True, p=self.p)
+        yield from idx.reshape(steps, self.batch_size)
 
 
 def make_synthetic_dataset(n: int = 512, seed: int = 0, h: int = 88, w: int = 200) -> DriveDataset:

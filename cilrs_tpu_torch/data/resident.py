@@ -7,6 +7,9 @@ sized by ``paged_layout``, each [n_p, row_elems] uint8 with rows padded to 16
 bytes; ``page_rows`` (logical rows per non-final page; global row g lives at
 pages[g // page_rows][g % page_rows]); ``image_shape``; and ``speed``
 (normalized), ``command`` and ``controls`` as flat device tensors.
+``gather_group`` reads a group of batches from such a table with one launch
+of the row-gather kernel, ``snapshot_rows`` copies rows into a table of their
+own, and ``labels_dataset`` is the host-label view the split and sampler use.
 On-card collection comes with the collection slice.
 """
 
@@ -17,9 +20,11 @@ import torch
 
 from cilrs_tpu_torch.cli.common import require_cuda
 from cilrs_tpu_torch.data.dataset import DriveDataset
-from cilrs_tpu_torch.ops.gather import PAGE_BYTE_LIMIT, padded_row_elems, paged_layout
+from cilrs_tpu_torch.ops.gather import (PAGE_BYTE_LIMIT, gather_rows_paged, padded_row_elems,
+                                        paged_layout)
 
 SHIP_CHUNK_ROWS = 16384  # bounds the host fancy-index temp (~865 MB of 88x200 frames)
+LABEL_KEYS = ("speed", "command", "controls")
 
 
 def ship_resident(ds: DriveDataset, device="cuda", idx: np.ndarray | None = None,
@@ -54,3 +59,45 @@ def ship_resident(ds: DriveDataset, device="cuda", idx: np.ndarray | None = None
         "command": torch.from_numpy(ds.command[idx]).to(dev),
         "controls": torch.from_numpy(ds.controls[idx]).to(dev),
     }
+
+
+def labels_dataset(labels: dict) -> DriveDataset:
+    """Host-label view as a DriveDataset (images=None) for the split/sampler."""
+    return DriveDataset(
+        images=None,
+        speed_norm=labels["speed"],
+        command=labels["command"],
+        controls=labels["controls"],
+    )
+
+
+def _index_tensor(idx: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """int32 indices on ``dev``. On the card they go through pinned memory
+    without a sync: a pageable copy would wait for the work already queued."""
+    t = torch.from_numpy(np.ascontiguousarray(idx, dtype=np.int32))
+    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+
+
+def gather_group(table: dict, idxs: np.ndarray) -> dict:
+    """Rows ``idxs`` (any shape, e.g. [K, B] for K batches) of ``table`` ->
+    a batch dict of flat [K*B, ...] tensors: the frames through one launch of
+    the row-gather kernel, the labels by indexing."""
+    pages = table["images"] if isinstance(table["images"], tuple) else (table["images"],)
+    flat = _index_tensor(np.reshape(idxs, -1), pages[0].device)
+    shape = tuple(table["image_shape"])
+    d = int(np.prod(shape))
+    frames = gather_rows_paged(pages, flat, int(table.get("page_rows", 0)))
+    batch = {"images": frames[:, :d].reshape((-1,) + shape)}
+    sel = flat.long()
+    batch.update({k: table[k][sel] for k in LABEL_KEYS})
+    return batch
+
+
+def snapshot_rows(table: dict, rows: np.ndarray) -> dict:
+    """An independent one-page table of ``rows`` of ``table``, copied through
+    one launch of the row-gather kernel."""
+    flat = _index_tensor(rows, table["images"][0].device)
+    sel = flat.long()
+    return {"images": (gather_rows_paged(table["images"], flat, table["page_rows"]),),
+            "page_rows": len(rows), "image_shape": tuple(table["image_shape"]),
+            **{k: table[k][sel] for k in LABEL_KEYS}}

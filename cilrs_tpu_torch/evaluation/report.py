@@ -2,9 +2,10 @@
 
 Port of ``cilrs_tpu/evaluation/report.py``. ``offline_report`` and
 ``save_report`` are the same numpy code. ``collect_predictions_resident`` runs
-the policy over rows of a card-resident table: per group of K=25 batches, one
-launch of the row-gather kernel brings the group's frames, the labels come by
-plain indexing, and only the [N, 4] predictions cross to the host.
+the policy over rows of a card-resident table: per group of K=25 batches,
+``data.resident.gather_group`` brings the group's frames with one launch of
+the row-gather kernel and its labels by plain indexing, and only the [N, 4]
+predictions cross to the host.
 ``collect_predictions`` is the host-batch path.
 """
 
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from cilrs_tpu_torch.config import COMMAND_NAMES, WEATHER_NAMES
-from cilrs_tpu_torch.ops.gather import gather_rows_paged
+from cilrs_tpu_torch.data.resident import gather_group
 from cilrs_tpu_torch.train.steps import make_eval_step
 
 CONTROL_NAMES = ("steer", "throttle", "brake", "speed")
@@ -96,12 +97,6 @@ def collect_predictions_resident(model: torch.nn.Module, table: dict, labels: di
 
     Returns (pred [N,4], true [N,4], command [N]) as numpy.
     """
-    img_shape = tuple(table["image_shape"])
-    d = int(np.prod(img_shape))
-    page_rows = int(table.get("page_rows", 0))
-    pages = table["images"]
-    pages = pages if isinstance(pages, tuple) else (pages,)
-    dev = pages[0].device
     eval_step = make_eval_step(cfg)
     preds = []
     group = batch * GROUP_BATCHES
@@ -112,18 +107,9 @@ def collect_predictions_resident(model: torch.nn.Module, table: dict, labels: di
         # repeats, so it works even when the tail is shorter than one batch);
         # the padded predictions are trimmed right back off.
         padded = np.resize(rows, -(-n_rows // batch) * batch)
-        flat = torch.from_numpy(padded.astype(np.int32)).to(dev)
-        images = gather_rows_paged(pages, flat, page_rows)[:, :d].reshape((-1,) + img_shape)
-        flat = flat.long()
-        outs = []
-        for b in range(0, len(padded), batch):
-            sel = flat[b:b + batch]
-            outs.append(eval_step(model, {
-                "images": images[b:b + batch],
-                "speed": table["speed"][sel],
-                "command": table["command"][sel],
-                "controls": table["controls"][sel],
-            })["pred"])
+        frames = gather_group(table, padded)
+        outs = [eval_step(model, {k: v[b:b + batch] for k, v in frames.items()})["pred"]
+                for b in range(0, len(padded), batch)]
         preds.append(torch.cat(outs)[:n_rows].cpu().numpy())
     pred = np.concatenate(preds) if preds else np.zeros((0, 4))
     true = np.concatenate(

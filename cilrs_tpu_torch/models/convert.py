@@ -9,6 +9,8 @@ w3 [K, 256, 3]) split into the per-command ``control_branches.k``.
 ``load_checkpoint`` reads a notebook-format ``.pth`` file
 ({"model_state_dict", "epoch", "val_loss"}), including one pickled under the
 other NumPy major version (the reference's ``numpy._core`` alias shim).
+``load_torchvision_trunk`` grafts a torchvision resnet34 state dict onto the
+trunk (``--pretrained-backbone``).
 """
 
 from __future__ import annotations
@@ -107,3 +109,39 @@ def flax_to_state_dict(params: dict, batch_stats: dict) -> "OrderedDict[str, tor
     if "speed_skip_w" in br:
         sd["speed_skip_w"] = _t(br["speed_skip_w"])
     return sd
+
+
+# A plain torchvision ResNet's top-level modules -> slots of the port's
+# visual_encoder Sequential (2 relu, 3 maxpool, 8 avgpool and fc have no
+# trunk weights).
+_TORCHVISION_SLOTS = {"conv1": 0, "bn1": 1, "layer1": 4, "layer2": 5, "layer3": 6, "layer4": 7}
+
+
+def load_torchvision_trunk(model: torch.nn.Module, path_or_sd) -> None:
+    """Graft an ImageNet-pretrained torchvision resnet34 state dict (names
+    conv1/bn1/layer{1..4}.*; a ``.pth`` path or a loaded {name: tensor}
+    dict) onto ``model.visual_encoder`` in place; the heads stay as they are
+    and ``fc.*`` is ignored. Every trunk tensor must exist with the same
+    shape, else it raises. The counterpart of
+    ``cilrs_tpu/models/torch_import.py:init_trunk_from_torchvision``."""
+    if isinstance(path_or_sd, str):
+        _install_numpy_pickle_shims()
+        path_or_sd = torch.load(path_or_sd, map_location="cpu", weights_only=False)
+    src = path_or_sd.get("model_state_dict", path_or_sd)
+    dst = model.visual_encoder.state_dict()
+    mapped = {}
+    for name, value in src.items():
+        head, _, rest = name.partition(".")
+        if head not in _TORCHVISION_SLOTS:
+            continue
+        key = f"{_TORCHVISION_SLOTS[head]}.{rest}"
+        value = torch.as_tensor(value)
+        if key not in dst or dst[key].shape != value.shape:
+            want = tuple(dst[key].shape) if key in dst else "no such tensor"
+            raise ValueError(f"torchvision trunk tensor {name} {tuple(value.shape)} "
+                             f"does not fit visual_encoder.{key}: {want}")
+        mapped[key] = value.to(dst[key].dtype)
+    missing = sorted(k for k in dst if k not in mapped and not k.endswith("num_batches_tracked"))
+    if missing:
+        raise ValueError(f"torchvision state dict lacks trunk tensors: {missing[:5]}")
+    model.visual_encoder.load_state_dict(mapped, strict=False)

@@ -6,20 +6,48 @@ Laid out as the reference's torchvision trunk inside ``nn.Sequential``
 are, for any ``stage_sizes``. Input is NCHW, best in ``channels_last``.
 
 Against the Flax trunk: BatchNorm eps 1e-5 and Flax momentum 0.9 is torch
-momentum 0.1. Flax pads the stride-2 1x1 downsample conv with SAME, which for a
-1x1 kernel pads nothing, the same as torch's padding=0 (at 88x200 the maps go
-44x100 -> 22x50 -> 11x25 -> 6x13 -> 3x7).
+momentum 0.1, and in train mode the running variance takes the biased batch
+variance, as Flax's does (``FlaxBatchNorm2d``). Flax pads the stride-2 1x1
+downsample conv with SAME, which for a 1x1 kernel pads nothing, the same as
+torch's padding=0 (at 88x200 the maps go 44x100 -> 22x50 -> 11x25 -> 6x13 ->
+3x7).
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
+import torch.nn.functional as F
 from torch import nn
 
 
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d whose train-mode running variance follows Flax.
+
+    Both normalize a batch by its biased variance v, but torch moves
+    ``running_var`` towards the unbiased n/(n-1) v (n = batch x H x W) and
+    Flax towards v. Torch's update goes to a copy, rv' = (1-m) rv + m v
+    n/(n-1), from which the Flax value (1-m) rv + m v is rv' (n-1)/n +
+    rv (1-m)/n. (The copy is what autograd saves, so the buffer itself may
+    change in place.) Eval mode is BatchNorm2d's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        unbiased = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, unbiased, self.weight, self.bias, True,
+                         self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_var.mul_((1 - self.momentum) / n).add_(unbiased, alpha=(n - 1) / n)
+        return y
+
+
 def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+    return FlaxBatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
 class BasicBlock(nn.Module):

@@ -1,23 +1,77 @@
-"""Evaluation step (port of ``cilrs_tpu/train/steps.py:make_eval_step``).
+"""Train and eval steps (port of ``cilrs_tpu/train/steps.py``).
 
-u8 -> float32, /255 and ImageNet normalize in plain torch, then the CILRS
-forward in eval mode, the loss parts, per-command |steer error| sums and
-counts, and ``pred`` = [steer, throttle, brake, pred_speed]. The train step
-comes with the training slice.
+Train: u8 -> /255 -> augmentation -> ImageNet normalize -> the CILRS forward
+in train mode (bf16 autocast and ``channels_last`` on the card) -> the
+weighted loss with the train-only boosts -> backward -> clip -> Adam -> the
+schedule. The step's random draws depend only on (seed, step), as the JAX
+step's ``fold_in(rng, state.step)``: augmentation draws from a generator
+seeded for the step, and dropout from the global generators seeded for the
+step inside ``fork_rng``, which restores them afterwards, so no random state
+carries from one step to the next and a resumed run draws what the
+uninterrupted one would have.
+
+Eval: the forward in eval mode, the loss parts, per-command |steer error|
+sums and counts, and ``pred`` = [steer, throttle, brake, pred_speed].
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from cilrs_tpu_torch.config import TrainConfig
 from cilrs_tpu_torch.models.losses import cilrs_loss
-from cilrs_tpu_torch.ops.image import normalize
+from cilrs_tpu_torch.ops.image import augment_batch, normalize
+from cilrs_tpu_torch.train.state import TrainState
 
 
 def _prep_images(images_u8: torch.Tensor) -> torch.Tensor:
     return normalize(images_u8.float() / 255.0)
+
+
+def step_seeds(seed: int, step: int) -> tuple[int, int]:
+    """(augmentation seed, dropout seed) of update ``step`` of a run seeded
+    with ``seed``."""
+    a, d = np.random.SeedSequence([seed, step]).generate_state(2)
+    return int(a), int(d)
+
+
+def make_train_step(cfg: TrainConfig):
+    loss_cfg = cfg.loss
+    if cfg.training.speed_loss_boost != 1.0 or cfg.training.brake_loss_boost != 1.0:
+        # Train-time-only reweighting of the aux speed / brake heads; eval
+        # keeps the canonical weights so val_loss stays comparable across runs.
+        loss_cfg = dataclasses.replace(
+            loss_cfg,
+            speed_weight=loss_cfg.speed_weight * cfg.training.speed_loss_boost,
+            brake_weight=loss_cfg.brake_weight * cfg.training.brake_loss_boost,
+        )
+    generators: dict[torch.device, torch.Generator] = {}
+
+    def train_step(state: TrainState, batch: dict, seed: int) -> dict:
+        """batch: images [B,H,W,3] u8, speed [B], command [B], controls [B,3],
+        on the model's device. Updates ``state`` in place and returns the loss
+        parts as device tensors (no host sync)."""
+        dev = batch["images"].device
+        aug_seed, drop_seed = step_seeds(seed, state.step)
+        if dev not in generators:
+            generators[dev] = torch.Generator(device=dev)
+        gen = generators[dev].manual_seed(aug_seed)
+        x = normalize(augment_batch(gen, batch["images"].float() / 255.0))
+        model = state.model.train()
+        with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+            torch.manual_seed(drop_seed)
+            controls, pred_speed = model(x, batch["speed"], batch["command"])
+        total, parts = cilrs_loss(controls, pred_speed, batch["controls"], batch["speed"], loss_cfg)
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        state.apply_gradients()
+        return {k: v.detach() for k, v in parts.items()}
+
+    return train_step
 
 
 def make_eval_step(cfg: TrainConfig):

@@ -13,9 +13,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from cilrs_tpu_torch import config as tc  # noqa: E402
 from cilrs_tpu_torch.data.dataset import make_synthetic_dataset  # noqa: E402
-from cilrs_tpu_torch.data.resident import ship_resident  # noqa: E402
+from cilrs_tpu_torch.data.resident import labels_dataset, ship_resident  # noqa: E402
 from cilrs_tpu_torch.ops import gather as tg  # noqa: E402
+from cilrs_tpu_torch.ops import image as timg  # noqa: E402
+from cilrs_tpu_torch.train.loop import train  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -119,3 +122,37 @@ def test_ship_resident_on_card_matches_cpu(cuda_device):
     got = tg.gather_rows_paged(gpu["images"], torch.from_numpy(idx).to(cuda_device), gpu["page_rows"])
     want = tg.gather_rows_paged(cpu["images"], torch.from_numpy(idx), cpu["page_rows"])
     assert torch.equal(got.cpu(), want)
+
+
+def test_train_steps_on_card_count_gather_launches(cuda_device):
+    """A few train steps from a 2-page resident table on the card: every
+    train group and every eval group is one kernel launch, and the losses
+    are finite."""
+    ds = make_synthetic_dataset(400, seed=5, h=32, w=64)
+    table = ship_resident(ds, cuda_device, max_page_bytes=250 * 32 * 64 * 3)
+    assert len(table["images"]) == 2
+    cfg = tc.TrainConfig(model=tc.ModelConfig(stage_sizes=(1, 1, 1, 1)),
+                         training=tc.TrainingConfig(batch_size=16, epochs=1))
+    labels = {"speed": ds.speed_norm, "command": ds.command, "controls": ds.controls}
+    before = tg.gather_rows_paged.launches
+    out = train(labels_dataset(labels), cfg, device=cuda_device, steps_per_epoch=30,
+                verbose=False, resident=table)
+    torch.cuda.synchronize()
+    # 30 steps = groups of 25 + 5; 60 val rows = 3 batches, one eval group,
+    # on the EMA and on the raw iterate.
+    assert tg.gather_rows_paged.launches - before == 2 + 2
+    assert out["state"].step == 30 and out["state"].model.visual_encoder[0].weight.is_cuda
+    assert np.all(np.isfinite(out["group_losses"])) and np.isfinite(out["best_val_loss"])
+
+
+def test_augment_on_card_matches_cpu(cuda_device):
+    """The augmentation on the card against the CPU on the same draws (the
+    tolerance of tests/test_torch_augment.py: at most 1e-4 of the values
+    beyond 1e-5)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.rand((64, 88, 200, 3), generator=gen, device=cuda_device)
+    draws = timg.draw_augment(gen, 64, 88, 200)
+    assert all(v.is_cuda for v in draws.values())
+    got = timg.apply_augment(x, draws).cpu()
+    want = timg.apply_augment(x.cpu(), {k: v.cpu() for k, v in draws.items()})
+    assert ((got - want).abs() > 1e-5).float().mean().item() <= 1e-4
