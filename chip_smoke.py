@@ -36,7 +36,25 @@ end to end at the full width of the repo's model (CILRS, ResNet-34 trunk,
      split), every train and eval group gathered by the kernel (launches
      counted); train frames/s and ms a step through the loop's group function
      after a warm-up group, peak memory, one train group under the profiler,
-     and the kernel at an eval group's 6,000 rows against its bound.
+     and the kernel at an eval group's 6,000 rows against its bound;
+  7. collect_check: the closed-loop simulator in collect mode (Town01, 4
+     envs, clear and night, 12 vehicles, 6 walkers, 88x200 camera) for 50
+     ticks on the card and on the CPU from the same fleet and the same
+     pedestrian draws: per-tick ego pose, speed, control, command, status,
+     teleport cause and the u8 frames, held to the tolerances of the CPU
+     tests (tests/test_torch_agent.py);
+  8. collect_full_size: the full-width fleet (Town01, 16 envs, 12 vehicles,
+     6 walkers, 4 chained routes an env, 88x200 camera) through the chunk
+     function of ``data.collect.collect_session``: one warm-up chunk of 100
+     ticks, 3 timed chunks (env-steps/s, kept frames/s, ms a tick, host ms
+     to issue a tick, the chunk's copy to the host), one chunk under the
+     profiler (busy share, device activities a tick, top items), one under
+     CUDA's sync check, peak memory, and a 5-weather strip (20 ticks each,
+     mean frame luminance; night darker than clear by more than 0.05);
+  9. collect_cli: ``python -m cilrs_tpu_torch.cli.collect --frames 3000
+     --envs 16`` into a temp dir, ``cli.train`` for 1 epoch on that session
+     and ``cli.report`` on its best checkpoint: collect -> train -> report
+     with no JAX in the chain.
 
 Prints one JSON line per phase, then the kernels line, the card's name and
 power limit, and last {"ok": true, "device": {...}}. A failed phase ends the
@@ -59,20 +77,27 @@ import warnings
 import numpy as np
 import torch
 
+from cilrs_tpu_torch.agent import driver as driver_mod
+from cilrs_tpu_torch.agent.driver import fleet_rollout
+from cilrs_tpu_torch.agent.npc import draw_pedestrians
 from cilrs_tpu_torch.bench.timing import card_line, copy_bound_ms, host_us_per_call, median_ms
+from cilrs_tpu_torch.cli import collect as collect_cli
 from cilrs_tpu_torch.cli import report as report_cli
 from cilrs_tpu_torch.cli import train as train_cli
-from cilrs_tpu_torch.config import load_train_config
+from cilrs_tpu_torch.config import WEATHER_NAMES, load_train_config
+from cilrs_tpu_torch.data.collect import HOST_KEYS, MIN_SPEED_KMH, make_collect_fleet
 from cilrs_tpu_torch.data.dataset import (WeightedBatchSampler, load_sessions,
                                           make_synthetic_dataset, save_session, stratified_split)
 from cilrs_tpu_torch.data.resident import gather_group, labels_dataset
 from cilrs_tpu_torch.evaluation.report import GROUP_BATCHES, collect_predictions_resident
+from cilrs_tpu_torch.maps.town import make_town01
 from cilrs_tpu_torch.models.cilrs import CILRS
 from cilrs_tpu_torch.models.losses import cilrs_loss
 from cilrs_tpu_torch.ops.build import build
 from cilrs_tpu_torch.ops.gather import (bulk_plan, gather_rows_paged, gather_rows_plain,
                                         paged_layout)
 from cilrs_tpu_torch.ops.image import apply_augment, draw_augment, normalize
+from cilrs_tpu_torch.render import raster as raster_mod
 from cilrs_tpu_torch.train import checkpoint as ckpt_mod
 from cilrs_tpu_torch.train.checkpoint import load_policy, save_checkpoint_pth
 from cilrs_tpu_torch.train.loop import EVAL_GROUP_BATCHES, STEPS_PER_CALL, train, train_group
@@ -124,6 +149,29 @@ TRAIN_EPOCHS = 2
 TRAIN_STEPS = 100  # steps an epoch of train_full_size
 TIMED_GROUPS = 4
 EVAL_GROUP_ROWS = BATCH * EVAL_GROUP_BATCHES  # 6,000
+# The closed loop in collect mode. Full width: the collect CLI's defaults
+# (Town01, 16 envs, 12 vehicles, 6 walkers, chunks of 100 ticks).
+SIM_ENVS, SIM_VEHICLES, SIM_WALKERS, SIM_CHUNK = 16, 12, 6, 100
+SIM_TIMED_CHUNKS = 3
+STRIP_TICKS = 20
+NIGHT_DARKER_BY = 0.05  # tests/test_render.py:71-76 holds the JAX renderer to it
+# collect_check: the card against the CPU on one fleet, 50 ticks, with the
+# tolerances the CPU tests hold the port to the JAX package with
+# (tests/test_torch_agent.py): integers exact; poses 1e-4 m and 1e-5 rad,
+# speed 1e-4 km/h, controls 1e-5; u8 frames: at most 0.5% of the values off
+# by more than 1, mean difference under 0.05.
+CHECK_ENVS, CHECK_TICKS, CHECK_WEATHERS = 4, 50, (0, 3, 0, 3)  # clear, night
+CHECK_TOL = {"pos": 1e-4, "yaw": 1e-5, "speed_kmh": 1e-4, "control": 1e-5,
+             "steer_hint": 1e-5, "obstacle_dist": 1e-4}
+CHECK_EXACT = ("command", "status", "tp_cause", "tl_state", "route_idx", "completed")
+FRAME_MAX_SHARE, FRAME_MAX_MEAN = 0.005, 0.05
+COLLECT_CLI_FRAMES = 3000
+# The tick's layers, as their callers call them (env_observe holds the
+# render, the render its [pixels x 72] ground pass and its box solve,
+# env_act the NPC controller and the physics).
+SIM_LAYERS = (("driver", "env_observe"), ("driver", "render_frame"), ("raster", "_ground_masks"),
+              ("raster", "_ray_obb"), ("driver", "env_act"), ("driver", "npc_controller"),
+              ("driver", "world_physics_step"))
 
 
 def emit(obj: dict):
@@ -614,6 +662,262 @@ def phase_train_full_size(dev, table: dict, labels: dict, val_idx: np.ndarray) -
                   "bound_ms_6000_rows": bound_ms}
 
 
+def profile_ops(fn, ticks: int) -> dict:
+    """One call of fn (``ticks`` simulator ticks) under torch.profiler: busy
+    share of the wall under the profiler, device time and device activities
+    a tick, and the device time by torch op (the kernels' names are
+    templates that say little; the op that launched them says what it is)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    avg = prof.key_averages()
+    kernels = [e for e in avg if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0 and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms == 0:
+        return {"device_time": "not measured (the profiler saw no device time)"}
+    ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in avg
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    # The layers' ranges (SIM_LAYERS): host and device ms a tick in each.
+    layers = {e.key[len("sim::"):]: {"host_ms_per_tick": e.cpu_time_total / 1e3 / ticks,
+                                     "device_ms_per_tick": e.device_time_total / 1e3 / ticks,
+                                     "calls": e.count}
+              for e in avg if e.key.startswith("sim::")
+              and e.device_type == torch.autograd.DeviceType.CPU}
+    activities = sum(e.count for e in kernels)
+    return {"ticks": ticks, "wall_ms_under_profiler": wall_ms, "device_busy_ms": busy_ms,
+            "busy_share_under_profiler": busy_ms / wall_ms, "device_ms_per_tick": busy_ms / ticks,
+            "device_activities": activities, "device_activities_per_tick": activities / ticks,
+            "layers_under_profiler": layers,
+            "top_ops_device_ms_calls": [[k, ms, n] for k, ms, n in ops[:12]]}
+
+
+def profile_sim_layers(fn, ticks: int) -> dict:
+    """profile_ops over fn with each simulator layer of SIM_LAYERS in a named
+    range: the driver's calls are wrapped for this one run and restored.
+    Every layer runs once a tick; one that is not reached through the patched
+    name (a renamed function, a ``from x import f``) fails the phase instead of
+    dropping out of the table."""
+    modules = {"driver": driver_mod, "raster": raster_mod}
+    saved = {(m, name): getattr(modules[m], name) for m, name in SIM_LAYERS}
+
+    def annotated(name, f):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(f"sim::{name}"):
+                return f(*args, **kwargs)
+        return call
+
+    try:
+        for (m, name), f in saved.items():
+            setattr(modules[m], name, annotated(name, f))
+        profile = profile_ops(fn, ticks)
+    finally:
+        for (m, name), f in saved.items():
+            setattr(modules[m], name, f)
+    layers = profile.get("layers_under_profiler")
+    if layers is not None:
+        calls = {name: layers.get(name, {}).get("calls", 0) for _, name in SIM_LAYERS}
+        if any(n != ticks for n in calls.values()):
+            raise AssertionError(f"layer ranges over {ticks} ticks: {calls}")
+    return profile
+
+
+_VIEW_OPS = {"view", "_unsafe_view", "unsqueeze", "squeeze", "select", "slice", "expand",
+             "permute", "t", "alias", "as_strided", "detach"}
+
+
+def count_aten_calls(fn) -> dict:
+    """The aten calls one call of fn makes (no timing): all of them, the
+    views among them (no kernel) and the CPU scalars torch wraps around
+    Python numbers (no kernel either)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = str(func.overloadpacket).split(".")[-1]
+            self.calls[name] = self.calls.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    mode = Count()
+    with mode:
+        fn()
+    return {"all": sum(mode.calls.values()),
+            "views": sum(n for k, n in mode.calls.items() if k in _VIEW_OPS),
+            "scalar_tensor": mode.calls.get("scalar_tensor", 0)}
+
+
+def sync_check(fn) -> list:
+    """Run fn with CUDA's sync checker on; the messages of the syncs it made."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sorted({str(w.message)[:160] for w in caught
+                   if "called a synchronizing" in str(w.message)})
+
+
+def phase_collect_check(dev) -> dict:
+    """The same fleet, 50 ticks on the card and on the CPU on the same
+    pedestrian draws, compared tick by tick (see CHECK_TOL)."""
+    net = make_town01()
+    draws = draw_pedestrians(torch.Generator().manual_seed(3), CHECK_TICKS, CHECK_ENVS,
+                             SIM_WALKERS, "cpu")
+    outs = {}
+    for d in ("cpu", "cuda"):
+        f = make_collect_fleet(net, CHECK_ENVS, SIM_VEHICLES, SIM_WALKERS, seed=7,
+                               chunk_steps=CHECK_TICKS, device=d)
+        state = f.state.replace(world=f.state.world.replace(
+            weather_idx=torch.tensor(CHECK_WEATHERS, dtype=torch.int64, device=d)))
+        t0 = time.time()
+        _, o = fleet_rollout(state, CHECK_TICKS, f.net, f.pool, f.wt, f.params, draws.to(d),
+                             cam=f.cam)
+        outs[d] = {k: v.cpu().numpy() for k, v in o.items()}
+        outs[d]["_wall_s"] = time.time() - t0
+    cpu, gpu = outs["cpu"], outs["cuda"]
+    errs = {k: float(np.abs(gpu[k].astype(np.float64) - cpu[k]).max()) for k in CHECK_TOL}
+    mismatches = {k: int((gpu[k] != cpu[k]).sum()) for k in CHECK_EXACT}
+    fd = np.abs(gpu["frame"].astype(int) - cpu["frame"].astype(int))
+    frame = {"share_beyond_1": float((fd > 1).mean()), "mean_abs": float(fd.mean()),
+             "max_abs": int(fd.max())}
+    line = {"phase": "collect_check", "ok": True, "map": "town01", "envs": CHECK_ENVS,
+            "ticks": CHECK_TICKS, "weathers": list(CHECK_WEATHERS), "max_abs_err": errs,
+            "int_mismatches": mismatches, "frames_u8": frame,
+            "ego_path_m": np.linalg.norm(np.diff(cpu["pos"], axis=1), axis=-1).sum(axis=1).tolist(),
+            "statuses_seen": sorted(set(cpu["status"].flatten().tolist())),
+            "wall_s": {"cpu": cpu["_wall_s"], "cuda": gpu["_wall_s"]},
+            "tolerance": {**CHECK_TOL, "frame_share_beyond_1": FRAME_MAX_SHARE,
+                          "frame_mean": FRAME_MAX_MEAN}}
+    emit(line)  # the readings first, so a failed check still shows them
+    bad = [k for k, e in errs.items() if not e <= CHECK_TOL[k]] + \
+        [k for k, n in mismatches.items() if n] + \
+        (["frame"] if not (frame["share_beyond_1"] <= FRAME_MAX_SHARE
+                           and frame["mean_abs"] <= FRAME_MAX_MEAN) else [])
+    if bad:
+        raise AssertionError(f"card rollout differs from the CPU's in {bad}")
+    return line
+
+
+def phase_collect_full_size(dev) -> dict:
+    """The full-width fleet through collect_session's chunk function."""
+    t0 = time.time()
+    fleet = make_collect_fleet(make_town01(), SIM_ENVS, SIM_VEHICLES, SIM_WALKERS, seed=0,
+                               chunk_steps=SIM_CHUNK, device=dev)
+    setup_s = time.time() - t0
+    E, T = SIM_ENVS, SIM_CHUNK
+    gather_rows_paged.launches = 0
+    t0 = time.time()
+    fleet.chunk()  # warm-up: caches the constants, cuDNN/cuBLAS handles
+    torch.cuda.synchronize()
+    warmup_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    walls, issues, copies, kept = [], [], [], 0
+    for _ in range(SIM_TIMED_CHUNKS):
+        t0 = time.perf_counter()
+        outs = fleet.chunk()
+        issues.append(time.perf_counter() - t0)  # host time to issue the chunk's ticks
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        host = {k: v.cpu().numpy() for k, v in outs.items() if k in HOST_KEYS}
+        copies.append(time.perf_counter() - t1)
+        kept += int(((host["speed_kmh"] > MIN_SPEED_KMH) & (host["status"] == 0)).sum())
+        frames = host["frame"]
+        if frames.shape != (E, T, 88, 200, 3) or not np.isfinite(host["control"]).all():
+            raise AssertionError(f"chunk outputs: frames {frames.shape}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    wall = sum(walls)
+    t0 = time.time()
+    profile = profile_sim_layers(fleet.chunk, T)
+    profile["profile_and_analysis_s"] = time.time() - t0
+    one_tick = draw_pedestrians(fleet.generator, 1, E, SIM_WALKERS, dev)
+    aten_calls = count_aten_calls(lambda: fleet_rollout(
+        fleet.state, 1, fleet.net, fleet.pool, fleet.wt, fleet.params, one_tick, cam=fleet.cam))
+    syncs = sync_check(fleet.chunk)
+    if syncs:
+        raise AssertionError(f"a collect chunk waits for the card: {syncs}")
+    k1 = gather_rows_paged.launches
+
+    # The 5-weather strip: every env in one weather for STRIP_TICKS ticks.
+    strip = {}
+    for w, name in enumerate(WEATHER_NAMES):
+        st = fleet.state.replace(world=fleet.state.world.replace(
+            weather_idx=torch.full((E,), w, dtype=torch.int64, device=dev)))
+        draws = draw_pedestrians(fleet.generator, STRIP_TICKS, E, SIM_WALKERS, dev)
+        _, o = fleet_rollout(st, STRIP_TICKS, fleet.net, fleet.pool, fleet.wt, fleet.params,
+                             draws, cam=fleet.cam)
+        strip[name] = float(o["frame"].float().mean() / 255.0)
+    line = {"phase": "collect_full_size", "ok": True, "map": "town01", "envs": E,
+            "vehicles": SIM_VEHICLES, "walkers": SIM_WALKERS, "chunk_ticks": T,
+            "camera": [88, 200], "timed_chunks": SIM_TIMED_CHUNKS, "setup_s": setup_s,
+            "warmup_chunk_s": warmup_s, "chunk_walls_s": walls,
+            "env_steps_per_s": SIM_TIMED_CHUNKS * E * T / wall,
+            "kept_frames_per_s": kept / wall, "kept_share": kept / (SIM_TIMED_CHUNKS * E * T),
+            "ms_per_tick": wall * 1e3 / (SIM_TIMED_CHUNKS * T),
+            "host_issue_ms_per_tick": sum(issues) * 1e3 / (SIM_TIMED_CHUNKS * T),
+            "copy_out_ms_per_chunk": float(np.mean(copies)) * 1e3,
+            "peak_mem_bytes": peak, "peak_mem_above_start_bytes": peak - base_mem,
+            # Device time a tick over the unprofiled ms a tick (the profiler
+            # slows the host, so its own busy share reads low).
+            "busy_share_unprofiled": profile.get("device_ms_per_tick", 0) * SIM_TIMED_CHUNKS * T
+            / (wall * 1e3),
+            "profile_one_chunk": profile, "aten_calls_one_tick": aten_calls,
+            "host_syncs_in_chunk": 0,
+            "gather_launches": k1, "mean_luminance_by_weather": strip}
+    emit(line)
+    if k1 != 0:
+        raise AssertionError(f"the collect path launched the gather kernel {k1} times")
+    if not strip["night"] < strip["clear"] - NIGHT_DARKER_BY:
+        raise AssertionError(f"night {strip['night']} not darker than clear {strip['clear']}")
+    return line
+
+
+def phase_collect_cli(dev, workdir: str) -> dict:
+    """collect -> train -> report through the port's CLIs, no JAX."""
+    session = os.path.join(workdir, "session_collected")
+    run = os.path.join(workdir, "run_collected")
+    t0 = time.time()
+    stats = collect_cli.main(["--out", session, "--frames", str(COLLECT_CLI_FRAMES),
+                              "--envs", str(SIM_ENVS)])
+    collect_s = time.time() - t0
+    ds = load_sessions([session])
+    if len(ds) != stats["frames"] or len(ds) < COLLECT_CLI_FRAMES or ds.images.shape[1:] != FRAME_SHAPE:
+        raise AssertionError(f"session holds {len(ds)} frames {ds.images.shape}, stats {stats['frames']}")
+    t1 = time.time()
+    out = train_cli.main(["--data", session, "--ckpt-dir", run, "--epochs", "1"])
+    train_s = time.time() - t1
+    hist = out["history"]
+    if len(hist) != 1 or not all(math.isfinite(hist[0][k]) for k in ("train_loss", "val_loss")):
+        raise AssertionError(f"history {hist}")
+    cfg = load_train_config()
+    _, val_idx = stratified_split(ds, cfg.training.val_fraction, cfg.training.seed)
+    report = report_cli.main(["--data", session, "--checkpoint",
+                              os.path.join(run, ckpt_mod.BEST_NAME),
+                              "--out", os.path.join(workdir, "report_collected.json")])
+    if report["num_samples"] != len(val_idx) or not all(
+            math.isfinite(v) for k in ("steer", "throttle", "brake", "speed")
+            for v in _leaves(report[k])):
+        raise AssertionError(f"report: {report['num_samples']} samples, val split {len(val_idx)}")
+    return {"phase": "collect_cli", "ok": True, "frames": stats["frames"],
+            "command_distribution": stats["command_distribution"],
+            "collect_wall_s": collect_s, "collect_frames_per_s": stats["frames_per_sec"],
+            "train_wall_s": train_s, "history": hist, "val_rows": len(val_idx),
+            "report_steer_mae": report["steer"]["mae"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU", file=sys.stderr)
@@ -638,9 +942,19 @@ def main() -> int:
         phase = "train_full_size"
         line, train_kernel = phase_train_full_size(dev, table, labels, val_idx)
         emit(line)
+        del table, labels
+        torch.cuda.empty_cache()
+        phase = "collect_check"
+        phase_collect_check(dev)
+        phase = "collect_full_size"
+        collect_line = phase_collect_full_size(dev)
+        with tempfile.TemporaryDirectory(prefix="cilrs_smoke_collect_") as workdir:
+            phase = "collect_cli"
+            emit(phase_collect_cli(dev, workdir))
         phase = "report"
         kernel["launches_by_path"] = {"eval_full_size": kernel["launches"],
-                                      "train_full_size": train_kernel.pop("launches")}
+                                      "train_full_size": train_kernel.pop("launches"),
+                                      "collect_full_size": collect_line["gather_launches"]}
         kernel["launches"] = sum(kernel["launches_by_path"].values())
         kernel["max_abs_err"] = max(kernel["max_abs_err"], train_kernel.pop("max_abs_err"))
         kernel.update(train_kernel)

@@ -26,3 +26,16 @@ def configure_numerics() -> None:
     layers do on the CPU reference."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def build_map(spec: str):
+    """--map town01 (default) | mini. The JAX package's ``osm:<path>`` waits
+    for the port of ``maps/osm.py``. The network is built on the CPU;
+    callers move it."""
+    from cilrs_tpu_torch.maps.town import make_mini_town, make_town01
+
+    if spec in ("town01", "Town01", ""):
+        return make_town01()
+    if spec == "mini":
+        return make_mini_town()
+    raise SystemExit(f"unknown --map {spec!r} (use town01 | mini; osm: is not ported yet)")

@@ -1,8 +1,10 @@
 """Training and model configuration, loaded from the shared ``configs/train.json``.
 
 A copy of the plain dataclasses of ``cilrs_tpu/config.py`` (that module imports
-JAX for its device-side weather table, so the port keeps its own). The weather
-table and the controller configs belong to the closed-loop drive and are not
+JAX for its device-side weather table, so the port keeps its own), plus the
+per-weather ``WeatherTable`` as [num_weathers] tensors on a device, read from
+the shared ``configs/weather.json`` and indexed by each env's weather index.
+The controller's weather-adaptive configs belong to the drive mode and are not
 here yet.
 """
 
@@ -12,6 +14,8 @@ import dataclasses
 import json
 import os
 from typing import Any
+
+import torch
 
 _CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
 
@@ -26,6 +30,27 @@ def _load_json(name: str, override_path: str | None = None) -> dict[str, Any]:
     path = override_path or os.path.join(_CONFIG_DIR, name)
     with open(path) as f:
         return json.load(f)
+
+
+@dataclasses.dataclass(frozen=True)
+class WeatherTable:
+    """Per-weather controller parameters as stacked [W] float32 tensors."""
+
+    max_speed_kmh: torch.Tensor
+    curve_speed_kmh: torch.Tensor
+    sharp_curve_speed_kmh: torch.Tensor
+    brake_factor: torch.Tensor
+    steer_damping: torch.Tensor
+    curve_lookahead: torch.Tensor
+    curve_threshold: torch.Tensor
+    sharp_threshold: torch.Tensor
+    traction_control: torch.Tensor
+    traction_speed_threshold_kmh: torch.Tensor
+    friction: torch.Tensor
+
+    @property
+    def num_weathers(self) -> int:
+        return self.max_speed_kmh.shape[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,3 +125,29 @@ def load_train_config(path: str | None = None) -> TrainConfig:
         optimizer=_sub(OptimizerConfig, raw.get("optimizer", {})),
         training=_sub(TrainingConfig, raw.get("training", {})),
     )
+
+
+def load_weather_config(path: str | None = None) -> dict[str, Any]:
+    return _load_json("weather.json", path)
+
+
+def load_weather_table(path: str | None = None, device="cpu") -> WeatherTable:
+    raw = load_weather_config(path)["weather_profiles"]
+    missing = [w for w in WEATHER_NAMES if w not in raw]
+    if missing:
+        raise ValueError(f"weather config missing profiles: {missing}")
+
+    def col(field: str) -> torch.Tensor:
+        vals = [float(raw[w][field]) for w in WEATHER_NAMES]  # bools become 1.0 / 0.0
+        return torch.tensor(vals, dtype=torch.float32, device=device)
+
+    return WeatherTable(**{f.name: col(f.name) for f in dataclasses.fields(WeatherTable)})
+
+
+def weather_index(name: str) -> int:
+    name = name.lower().replace("_", "").replace("-", "")
+    aliases = {"hardrain": "hardrain", "hard": "hardrain", "clearnoon": "clear"}
+    name = aliases.get(name, name)
+    if name not in WEATHER_NAMES:
+        raise ValueError(f"unknown weather {name!r}; expected one of {WEATHER_NAMES}")
+    return WEATHER_NAMES.index(name)

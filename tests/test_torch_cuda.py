@@ -14,8 +14,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from cilrs_tpu_torch import config as tc  # noqa: E402
+from cilrs_tpu_torch.agent.driver import fleet_rollout  # noqa: E402
+from cilrs_tpu_torch.agent.npc import draw_pedestrians  # noqa: E402
+from cilrs_tpu_torch.data.collect import make_collect_fleet  # noqa: E402
 from cilrs_tpu_torch.data.dataset import make_synthetic_dataset  # noqa: E402
 from cilrs_tpu_torch.data.resident import labels_dataset, ship_resident  # noqa: E402
+from cilrs_tpu_torch.maps.town import make_mini_town  # noqa: E402
 from cilrs_tpu_torch.ops import gather as tg  # noqa: E402
 from cilrs_tpu_torch.ops import image as timg  # noqa: E402
 from cilrs_tpu_torch.train.loop import train  # noqa: E402
@@ -156,3 +160,40 @@ def test_augment_on_card_matches_cpu(cuda_device):
     got = timg.apply_augment(x, draws).cpu()
     want = timg.apply_augment(x.cpu(), {k: v.cpu() for k, v in draws.items()})
     assert ((got - want).abs() > 1e-5).float().mean().item() <= 1e-4
+
+
+def test_collect_rollout_on_card_matches_cpu(cuda_device):
+    """chip_smoke.py's collect_check at a small size: one fleet (mini town, 3
+    envs in clear, rain and night) for 30 ticks on the card and on the CPU on
+    the same pedestrian draws, with the tolerances the CPU tests hold the
+    port to the JAX package with (tests/test_torch_agent.py)."""
+    net = make_mini_town()
+    draws = draw_pedestrians(torch.Generator().manual_seed(3), 30, 3, 2, "cpu")
+    outs = []
+    for dev in ("cpu", cuda_device):
+        f = make_collect_fleet(net, 3, 4, 2, seed=3, chunk_steps=30, device=dev)
+        w = torch.tensor([0, 1, 3], device=dev)
+        state = f.state.replace(world=f.state.world.replace(weather_idx=w))
+        _, o = fleet_rollout(state, 30, f.net, f.pool, f.wt, f.params, draws.to(dev))
+        outs.append({k: v.cpu().numpy() for k, v in o.items()})
+    cpu, gpu = outs
+    for k in ("command", "status", "tp_cause", "tl_state", "route_idx", "completed"):
+        np.testing.assert_array_equal(gpu[k], cpu[k], err_msg=k)
+    for k, tol in (("pos", 1e-4), ("yaw", 1e-5), ("speed_kmh", 1e-4), ("control", 1e-5)):
+        np.testing.assert_allclose(gpu[k], cpu[k], atol=tol, rtol=0, err_msg=k)
+    d = np.abs(gpu["frame"].astype(int) - cpu["frame"].astype(int))
+    assert (d > 1).mean() <= 0.005 and d.mean() <= 0.05
+
+
+def test_collect_chunk_never_waits_for_the_card(cuda_device):
+    """A collect chunk issues its ticks without a host sync (CUDA's sync
+    checker raises on one), after a warm-up chunk has made its constants."""
+    f = make_collect_fleet(make_mini_town(), 2, 4, 2, seed=1, chunk_steps=5, device=cuda_device)
+    f.chunk()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = f.chunk()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert outs["frame"].shape == (2, 5, 88, 200, 3) and outs["frame"].is_cuda
