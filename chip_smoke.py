@@ -47,14 +47,34 @@ end to end at the full width of the repo's model (CILRS, ResNet-34 trunk,
      6 walkers, 4 chained routes an env, 88x200 camera) through the chunk
      function of ``data.collect.collect_session``: one warm-up chunk of 100
      ticks, 3 timed chunks (env-steps/s, kept frames/s, ms a tick, host ms
-     to issue a tick, the chunk's copy to the host), one chunk under the
-     profiler (busy share, device activities a tick, top items), one under
+     to issue a tick, the chunk's copy to the host), 50 ticks under the
+     profiler (busy share, device activities a tick, top items), a chunk under
      CUDA's sync check, peak memory, and a 5-weather strip (20 ticks each,
      mean frame luminance; night darker than clear by more than 0.05);
   9. collect_cli: ``python -m cilrs_tpu_torch.cli.collect --frames 3000
      --envs 16`` into a temp dir, ``cli.train`` for 1 epoch on that session
      and ``cli.report`` on its best checkpoint: collect -> train -> report
-     with no JAX in the chain.
+     with no JAX in the chain;
+ 10. drive_check: the closed loop in drive mode (Town01, 4 envs in clear,
+     rain, night and hard rain, the benchmark's 40 vehicles and 5 walkers, a
+     deterministic policy that reads the frame) for 60 ticks on the card and
+     on the CPU, compared tick by tick as collect_check compares; and the
+     full-width CILRS's raw controls on one tick, card bf16 against the same
+     weights in float32 on the CPU;
+ 11. drive_full_size: the benchmark protocol at full width (Town01, spawn
+     249 -> destination 219, 40 vehicles, 5 walkers, one env, the full-width
+     CILRS in bf16) through ``cli.drive``'s chunk function: a warm-up chunk
+     of 40 ticks, 5 timed chunks (ticks/s, real-time factor, ms and host ms a
+     tick), one chunk under the profiler with a range per layer (render,
+     safety controller, policy forward, NPC controller, physics), one under
+     CUDA's sync check, peak memory;
+ 12. benchmark_cli: ``python -m cilrs_tpu_torch.cli.benchmark --duration
+     20`` on the checkpoint directory collect_cli trained, all five weathers
+     (markdown, JSON, event files);
+ 13. pipeline_cli: ``python -m cilrs_tpu_torch.cli.pipeline --resident
+     --frames 6000 --envs 16 --epochs 1 --bench-duration 10``: on-card
+     collection into the resident table, training and the offline report
+     from it (the gather kernel's launches counted) and the benchmark.
 
 Prints one JSON line per phase, then the kernels line, the card's name and
 power limit, and last {"ok": true, "device": {...}}. A failed phase ends the
@@ -78,10 +98,13 @@ import numpy as np
 import torch
 
 from cilrs_tpu_torch.agent import driver as driver_mod
-from cilrs_tpu_torch.agent.driver import fleet_rollout
+from cilrs_tpu_torch.agent.driver import fleet_rollout, model_policy
 from cilrs_tpu_torch.agent.npc import draw_pedestrians
 from cilrs_tpu_torch.bench.timing import card_line, copy_bound_ms, host_us_per_call, median_ms
+from cilrs_tpu_torch.cli import benchmark as benchmark_cli
 from cilrs_tpu_torch.cli import collect as collect_cli
+from cilrs_tpu_torch.cli import drive as drive_cli
+from cilrs_tpu_torch.cli import pipeline as pipeline_cli
 from cilrs_tpu_torch.cli import report as report_cli
 from cilrs_tpu_torch.cli import train as train_cli
 from cilrs_tpu_torch.config import WEATHER_NAMES, load_train_config
@@ -90,6 +113,7 @@ from cilrs_tpu_torch.data.dataset import (WeightedBatchSampler, load_sessions,
                                           make_synthetic_dataset, save_session, stratified_split)
 from cilrs_tpu_torch.data.resident import gather_group, labels_dataset
 from cilrs_tpu_torch.evaluation.report import GROUP_BATCHES, collect_predictions_resident
+from cilrs_tpu_torch.evaluation.scoring import compute_scores
 from cilrs_tpu_torch.maps.town import make_town01
 from cilrs_tpu_torch.models.cilrs import CILRS
 from cilrs_tpu_torch.models.losses import cilrs_loss
@@ -153,6 +177,7 @@ EVAL_GROUP_ROWS = BATCH * EVAL_GROUP_BATCHES  # 6,000
 # (Town01, 16 envs, 12 vehicles, 6 walkers, chunks of 100 ticks).
 SIM_ENVS, SIM_VEHICLES, SIM_WALKERS, SIM_CHUNK = 16, 12, 6, 100
 SIM_TIMED_CHUNKS = 3
+SIM_PROFILE_TICKS = 50  # the profiled run: the analysis costs about a second a tick
 STRIP_TICKS = 20
 NIGHT_DARKER_BY = 0.05  # tests/test_render.py:71-76 holds the JAX renderer to it
 # collect_check: the card against the CPU on one fleet, 50 ticks, with the
@@ -172,9 +197,29 @@ COLLECT_CLI_FRAMES = 3000
 SIM_LAYERS = (("driver", "env_observe"), ("driver", "render_frame"), ("raster", "_ground_masks"),
               ("raster", "_ray_obb"), ("driver", "env_act"), ("driver", "npc_controller"),
               ("driver", "world_physics_step"))
+# The drive tick's layers; "run" is the drive run, whose policy is the
+# CILRS forward.
+DRIVE_LAYERS = (("driver", "env_observe"), ("driver", "render_frame"), ("run", "policy"),
+                ("driver", "env_act"), ("driver", "safety_controller"),
+                ("driver", "npc_controller"), ("driver", "world_physics_step"))
+# The closed loop in drive mode: the benchmark's traffic (cli/benchmark.py),
+# chunks of cli/drive.py's 40 ticks.
+DRIVE_VEHICLES, DRIVE_WALKERS = 40, 5
+DRIVE_CHECK_TICKS, DRIVE_CHECK_WEATHERS = 60, (0, 1, 3, 4)  # clear, rain, night, hardrain
+DRIVE_TIMED_CHUNKS = 5
+BENCH_SPAWN, BENCH_DESTINATION = 249, 219
+BENCH_CLI_DURATION = 20
+PIPELINE_FRAMES, PIPELINE_BENCH_DURATION = 6000, 10
+
+
+_START = time.time()
 
 
 def emit(obj: dict):
+    """One JSON line; a phase's line also says when the phase ended
+    (``at_s``, seconds since the script started)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.time() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -697,14 +742,14 @@ def profile_ops(fn, ticks: int) -> dict:
             "top_ops_device_ms_calls": [[k, ms, n] for k, ms, n in ops[:12]]}
 
 
-def profile_sim_layers(fn, ticks: int) -> dict:
-    """profile_ops over fn with each simulator layer of SIM_LAYERS in a named
-    range: the driver's calls are wrapped for this one run and restored.
-    Every layer runs once a tick; one that is not reached through the patched
-    name (a renamed function, a ``from x import f``) fails the phase instead of
-    dropping out of the table."""
-    modules = {"driver": driver_mod, "raster": raster_mod}
-    saved = {(m, name): getattr(modules[m], name) for m, name in SIM_LAYERS}
+def profile_sim_layers(fn, ticks: int, layers=SIM_LAYERS, run=None) -> dict:
+    """profile_ops over fn with each simulator layer of ``layers`` in a named
+    range: the driver's calls (and a drive run's policy) are wrapped for this
+    one run and restored. Every layer runs once a tick; one that is not
+    reached through the patched name (a renamed function, a ``from x import
+    f``) fails the phase instead of dropping out of the table."""
+    modules = {"driver": driver_mod, "raster": raster_mod, "run": run}
+    saved = {(m, name): getattr(modules[m], name) for m, name in layers}
 
     def annotated(name, f):
         def call(*args, **kwargs):
@@ -719,9 +764,9 @@ def profile_sim_layers(fn, ticks: int) -> dict:
     finally:
         for (m, name), f in saved.items():
             setattr(modules[m], name, f)
-    layers = profile.get("layers_under_profiler")
-    if layers is not None:
-        calls = {name: layers.get(name, {}).get("calls", 0) for _, name in SIM_LAYERS}
+    seen = profile.get("layers_under_profiler")
+    if seen is not None:
+        calls = {name: seen.get(name, {}).get("calls", 0) for _, name in layers}
         if any(n != ticks for n in calls.values()):
             raise AssertionError(f"layer ranges over {ticks} ticks: {calls}")
     return profile
@@ -841,7 +886,8 @@ def phase_collect_full_size(dev) -> dict:
     peak = torch.cuda.max_memory_allocated(dev)
     wall = sum(walls)
     t0 = time.time()
-    profile = profile_sim_layers(fleet.chunk, T)
+    profiled = dataclasses.replace(fleet, chunk_steps=SIM_PROFILE_TICKS)
+    profile = profile_sim_layers(profiled.chunk, SIM_PROFILE_TICKS)
     profile["profile_and_analysis_s"] = time.time() - t0
     one_tick = draw_pedestrians(fleet.generator, 1, E, SIM_WALKERS, dev)
     aten_calls = count_aten_calls(lambda: fleet_rollout(
@@ -918,6 +964,212 @@ def phase_collect_cli(dev, workdir: str) -> dict:
             "report_steer_mae": report["steer"]["mae"]}
 
 
+def _frame_policy(img, speed_norm, cmd):
+    """A deterministic policy that reads the frame: its mean sets the controls."""
+    m = torch.tanh(img.mean(dim=(1, 2, 3)))
+    return torch.stack([0.1 * m, 0.5 + 0.1 * m, 0.3 + 0.2 * m], dim=-1)
+
+
+def phase_drive_check(dev) -> dict:
+    """The same drive-mode fleet, 60 ticks on the card and on the CPU on the
+    same pedestrian draws, compared tick by tick (CHECK_TOL); then the
+    full-width CILRS's raw controls on one tick, card bf16 against float32 on
+    the CPU (FWD_REL_TOL)."""
+    net = make_town01()
+    E = len(DRIVE_CHECK_WEATHERS)
+    draws = draw_pedestrians(torch.Generator().manual_seed(5), DRIVE_CHECK_TICKS, E,
+                             DRIVE_WALKERS, "cpu")
+    cfg = load_train_config()
+    card_model = create_train_state(cfg, 0, device=dev).model.eval()
+    cpu_model = CILRS(num_commands=cfg.model.num_commands, dropout=cfg.model.dropout,
+                      dtype=torch.float32, stage_sizes=tuple(cfg.model.stage_sizes),
+                      speed_skip=cfg.model.speed_skip)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in card_model.state_dict().items()})
+    cpu_model.eval()
+    outs, raw = {}, {}
+    for d, model in (("cpu", cpu_model), (dev, card_model)):
+        f = make_collect_fleet(net, E, DRIVE_VEHICLES + 1, DRIVE_WALKERS, seed=11,
+                               chunk_steps=DRIVE_CHECK_TICKS, device=d)
+        state = f.state.replace(world=f.state.world.replace(
+            weather_idx=torch.tensor(DRIVE_CHECK_WEATHERS, dtype=torch.int64, device=d)))
+        t0 = time.time()
+        _, o = fleet_rollout(state, DRIVE_CHECK_TICKS, f.net, f.pool, f.wt, f.params,
+                             draws.to(d), mode="drive", cam=f.cam, policy=_frame_policy)
+        side = "cpu" if d == "cpu" else "card"
+        outs[side] = {k: v.cpu().numpy() for k, v in o.items()}
+        outs[side]["_wall_s"] = time.time() - t0
+        seen = []
+        policy = model_policy(model)
+        fleet_rollout(state, 1, f.net, f.pool, f.wt, f.params, draws[:1].to(d), mode="drive",
+                      cam=f.cam, policy=lambda *a: seen.append(policy(*a)) or seen[-1])
+        raw[side] = seen[0].float().cpu()
+    cpu, gpu = outs["cpu"], outs["card"]
+    errs = {k: float(np.abs(gpu[k].astype(np.float64) - cpu[k]).max()) for k in CHECK_TOL}
+    mismatches = {k: int((gpu[k] != cpu[k]).sum()) for k in CHECK_EXACT}
+    fd = np.abs(gpu["frame"].astype(int) - cpu["frame"].astype(int))
+    frame = {"share_beyond_1": float((fd > 1).mean()), "mean_abs": float(fd.mean()),
+             "max_abs": int(fd.max())}
+    rel = float((raw["card"] - raw["cpu"]).abs().max() / raw["cpu"].abs().max().clamp_min(1e-12))
+    line = {"phase": "drive_check", "ok": True, "map": "town01", "envs": E,
+            "vehicles": DRIVE_VEHICLES, "walkers": DRIVE_WALKERS, "ticks": DRIVE_CHECK_TICKS,
+            "weathers": list(DRIVE_CHECK_WEATHERS), "max_abs_err": errs,
+            "int_mismatches": mismatches, "frames_u8": frame,
+            "ego_path_m": np.linalg.norm(np.diff(cpu["pos"], axis=1), axis=-1).sum(axis=1).tolist(),
+            "statuses_seen": sorted(set(cpu["status"].flatten().tolist())),
+            "wall_s": {"cpu": cpu["_wall_s"], "card": gpu["_wall_s"]},
+            "cilrs_one_tick": {"controls_bf16_card": raw["card"].tolist(),
+                               "controls_f32_cpu": raw["cpu"].tolist(), "rel_err": rel},
+            "tolerance": {**CHECK_TOL, "frame_share_beyond_1": FRAME_MAX_SHARE,
+                          "frame_mean": FRAME_MAX_MEAN, "cilrs_rel": FWD_REL_TOL}}
+    emit(line)  # the readings first, so a failed check still shows them
+    bad = [k for k, e in errs.items() if not e <= CHECK_TOL[k]] + \
+        [k for k, n in mismatches.items() if n] + \
+        (["frame"] if not (frame["share_beyond_1"] <= FRAME_MAX_SHARE
+                           and frame["mean_abs"] <= FRAME_MAX_MEAN) else []) + \
+        (["cilrs_controls"] if not rel <= FWD_REL_TOL else [])
+    if bad:
+        raise AssertionError(f"card drive rollout differs from the CPU's in {bad}")
+    return line
+
+
+def phase_drive_full_size(dev) -> dict:
+    """The benchmark protocol at full width through cli.drive's chunk function."""
+    t0 = time.time()
+    run, route_m = drive_cli.make_drive_run(
+        make_town01(), BENCH_SPAWN, BENCH_DESTINATION, DRIVE_VEHICLES, DRIVE_WALKERS, "clear",
+        seed=0, device=dev)
+    setup_s = time.time() - t0
+    T = drive_cli.CHUNK_TICKS
+    gather_rows_paged.launches = 0
+    t0 = time.time()
+    run.chunk()  # warm-up: cuDNN picks its algorithms, constants are cached
+    torch.cuda.synchronize()
+    warmup_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    walls, issues = [], []
+    for _ in range(DRIVE_TIMED_CHUNKS):
+        t0 = time.perf_counter()
+        outs = run.chunk()
+        issues.append(time.perf_counter() - t0)  # host time to issue the chunk's ticks
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if not torch.isfinite(outs["control"]).all():
+            raise AssertionError("non-finite controls")
+    peak = torch.cuda.max_memory_allocated(dev)
+    wall = sum(walls)
+    ticks = DRIVE_TIMED_CHUNKS * T
+    t0 = time.time()
+    profile = profile_sim_layers(run.chunk, T, DRIVE_LAYERS, run)
+    profile["profile_and_analysis_s"] = time.time() - t0
+    aten_calls = count_aten_calls(lambda: run.chunk(1))
+    syncs = sync_check(run.chunk)
+    if syncs:
+        raise AssertionError(f"a drive chunk waits for the card: {syncs}")
+    k1 = gather_rows_paged.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = compute_scores(run.state.metrics)  # what cli.drive reads a chunk
+    scoring_ms = (time.perf_counter() - t0) * 1e3
+    line = {"phase": "drive_full_size", "ok": True, "map": "town01", "envs": 1,
+            "spawn": BENCH_SPAWN, "destination": BENCH_DESTINATION, "route_m": route_m,
+            "vehicles": DRIVE_VEHICLES, "walkers": DRIVE_WALKERS, "chunk_ticks": T,
+            "camera": [88, 200], "policy": "CILRS ResNet-34, bf16, random init (seed 0)",
+            "setup_s": setup_s, "warmup_chunk_s": warmup_s, "chunk_walls_s": walls,
+            "ticks_per_s": ticks / wall, "real_time_factor": ticks * driver_mod.DT / wall,
+            "ms_per_tick": wall * 1e3 / ticks,
+            "host_issue_ms_per_tick": sum(issues) * 1e3 / ticks,
+            "peak_mem_bytes": peak, "peak_mem_above_start_bytes": peak - base_mem,
+            "busy_share_unprofiled": profile.get("device_ms_per_tick", 0) * ticks / (wall * 1e3),
+            "profile_one_chunk": profile, "aten_calls_one_tick": aten_calls,
+            "host_syncs_in_chunk": 0, "gather_launches": k1, "scoring_ms": scoring_ms,
+            "scores_after_run": {k: scores[k] for k in ("overall", "total_distance_m",
+                                                        "collisions", "teleports")}}
+    emit(line)
+    if k1 != 0:
+        raise AssertionError(f"the drive path launched the gather kernel {k1} times")
+    return line
+
+
+def phase_benchmark_cli(dev, workdir: str, ckpt_dir: str) -> dict:
+    """cli.benchmark on collect_cli's checkpoint directory, five weathers."""
+    out = os.path.join(workdir, "RESULTS_bench.md")
+    events = os.path.join(workdir, "bench_events")
+    t0 = time.time()
+    results = benchmark_cli.main(["--checkpoint", ckpt_dir, "--duration", str(BENCH_CLI_DURATION),
+                                  "--out", out, "--json-out", os.path.join(workdir, "bench.json"),
+                                  "--events-dir", events, "--device", str(dev)])
+    wall = time.time() - t0
+    with open(out) as f:
+        md = f.read().splitlines()
+    rows = [ln for ln in md if ln.startswith("| ") and not ln.startswith("| Weather")]
+    if list(results) != list(WEATHER_NAMES) or len(rows) != len(WEATHER_NAMES):
+        raise AssertionError(f"benchmark weathers {list(results)}, {len(rows)} markdown rows")
+    if not all(math.isfinite(s[k]) for s in results.values()
+               for k in ("overall", "safety", "comfort", "route_completion")):
+        raise AssertionError(f"non-finite scores {results}")
+    files = sorted(os.listdir(events))
+    if files != sorted(f"events_{w}.json" for w in WEATHER_NAMES):
+        raise AssertionError(f"event files {files}")
+    return {"phase": "benchmark_cli", "ok": True, "duration_s": BENCH_CLI_DURATION,
+            "wall_s": wall, "markdown_rows": rows,
+            "scores": {w: {k: s[k] for k in ("overall", "grade", "total_distance_m",
+                                             "collisions", "teleports", "total_frames")}
+                       for w, s in results.items()}}
+
+
+def phase_pipeline_cli(dev, workdir: str) -> dict:
+    """cli.pipeline --resident: collect into the card-resident table, train
+    and report from it through the gather kernel, then the benchmark."""
+    work = os.path.join(workdir, "pipeline")
+    gather_rows_paged.launches = 0
+    t0 = time.time()
+    timing = pipeline_cli.main(["--workdir", work, "--resident", "--frames", str(PIPELINE_FRAMES),
+                                "--envs", str(SIM_ENVS), "--epochs", "1",
+                                "--bench-duration", str(PIPELINE_BENCH_DURATION),
+                                "--device", str(dev)])
+    wall = time.time() - t0
+    launches = gather_rows_paged.launches
+    # The launches the path must make: the train groups of the epoch, two
+    # val passes (EMA and raw) and the report, from the split of the labels.
+    cfg = load_train_config()
+    ds = load_sessions_labels(os.path.join(work, "session_resident"))
+    train_idx, val_idx = stratified_split(ds, cfg.training.val_fraction, cfg.training.seed)
+    spe = max(1, len(train_idx) // BATCH)
+    want = (-(-spe // STEPS_PER_CALL) + 2 * -(-max(1, len(val_idx) // BATCH) // EVAL_GROUP_BATCHES)
+            + -(-len(val_idx) // (BATCH * GROUP_BATCHES)))
+    if launches != want:
+        raise AssertionError(f"{launches} gather launches on the pipeline path, expected {want}")
+    with open(os.path.join(work, "evaluation_report.json")) as f:
+        report = json.load(f)
+    with open(os.path.join(work, "benchmark.json")) as f:
+        bench = json.load(f)
+    if len(ds) != PIPELINE_FRAMES or report["num_samples"] != len(val_idx) or \
+            list(bench) != list(WEATHER_NAMES) or not math.isfinite(report["steer"]["mae"]):
+        raise AssertionError(f"pipeline: {len(ds)} frames, report {report['num_samples']}, "
+                             f"benchmark {list(bench)}")
+    return {"phase": "pipeline_cli", "ok": True, "frames": PIPELINE_FRAMES, "envs": SIM_ENVS,
+            "wall_s": wall, "timing": timing, "gather_launches": launches,
+            "expected_launches": want, "val_rows": len(val_idx),
+            "report_steer_mae": report["steer"]["mae"],
+            "bench_overall": {w: s["overall"] for w, s in bench.items()}}
+
+
+def load_sessions_labels(session: str):
+    """A resident session's labels (measurements.csv) as a DriveDataset."""
+    import csv
+
+    from cilrs_tpu_torch.data.dataset import DriveDataset
+
+    with open(os.path.join(session, "measurements.csv")) as f:
+        rows = list(csv.DictReader(f))
+    col = lambda k, dt: np.array([r[k] for r in rows], dtype=np.float64).astype(dt)
+    return DriveDataset(images=None, speed_norm=col("speed_normalized", np.float32),
+                        command=col("high_level_command", np.int32),
+                        controls=np.stack([col(k, np.float32)
+                                           for k in ("steer", "throttle", "brake")], axis=1))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU", file=sys.stderr)
@@ -951,10 +1203,21 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="cilrs_smoke_collect_") as workdir:
             phase = "collect_cli"
             emit(phase_collect_cli(dev, workdir))
+            phase = "drive_check"
+            phase_drive_check(dev)
+            phase = "drive_full_size"
+            drive_line = phase_drive_full_size(dev)
+            phase = "benchmark_cli"
+            emit(phase_benchmark_cli(dev, workdir, os.path.join(workdir, "run_collected")))
+            phase = "pipeline_cli"
+            pipeline_line = phase_pipeline_cli(dev, workdir)
+            emit(pipeline_line)
         phase = "report"
         kernel["launches_by_path"] = {"eval_full_size": kernel["launches"],
                                       "train_full_size": train_kernel.pop("launches"),
-                                      "collect_full_size": collect_line["gather_launches"]}
+                                      "collect_full_size": collect_line["gather_launches"],
+                                      "drive_full_size": drive_line["gather_launches"],
+                                      "pipeline_cli": pipeline_line["gather_launches"]}
         kernel["launches"] = sum(kernel["launches_by_path"].values())
         kernel["max_abs_err"] = max(kernel["max_abs_err"], train_kernel.pop("max_abs_err"))
         kernel.update(train_kernel)

@@ -1,10 +1,11 @@
-"""The closed-loop driving step and the fleet rollout, in collect mode (port of
+"""The closed-loop driving step and the fleet rollout (port of
 ``cilrs_tpu/agent/driver.py``).
 
 One tick of every env at once: route context, perception and the camera
-(``env_observe``), then the autopilot teacher, the recovery and stuck
-machines, NPC traffic, physics, collisions, teleports, route switching and
-metrics (``env_act``). The JAX package ``vmap``s one env's step and
+(``env_observe``), then the policy (drive mode), the safety cascade or the
+autopilot teacher, the recovery and stuck machines, NPC traffic, physics,
+collisions, teleports, route switching and metrics (``env_act``). The JAX
+package ``vmap``s one env's step and
 ``lax.scan``s it; here every tensor carries the env dimension E and
 ``fleet_rollout`` is a Python loop over ticks whose outputs stay on the device,
 stacked [E, T, ...], until the caller copies them out once a chunk. No step of
@@ -19,11 +20,15 @@ Recovery semantics preserved from the reference:
  - teleport lands on the route ahead and resets controller/machine state;
    route completion switches to the next pre-traced route of the env's pool.
 
-Only the collect mode (the autopilot drives, the rollout records frames and
-labels) is here. The drive mode (the CILRS policy through the safety cascade
-of ``agent/controller.py:safety_controller``, the pinned-destination protocol
-``loop_routes=False`` and the departure hold) comes with the drive slice of
-the port; asking for it raises NotImplementedError.
+Two modes. ``collect``: the autopilot teacher drives and the rollout records
+frames and labels. ``drive``: a policy (the CILRS network) reads each env's
+normalized frame, speed and command, and its controls go through
+``agent/controller.py:safety_controller``, the departure hold and the off-road
+assist. Either mode runs the pinned-destination protocol with
+``loop_routes=False``: one attempt, and once the destination is reached the
+car parks and the metrics freeze. The JAX package's A/B switches
+``CILRS_TPU_NO_REDHOLD`` and ``CILRS_TPU_NO_OFFROAD_ASSIST`` are not ported: the
+port runs their defaults (the red hold and the assist on in drive mode).
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import torch
 from cilrs_tpu_torch.agent import perception
 from cilrs_tpu_torch.agent.autopilot import autopilot_controls
 from cilrs_tpu_torch.agent.controller import (CtrlState, ST_OK, ST_RECOVERY, init_ctrl_state,
-                                              reset_ctrl_state)
+                                              reset_ctrl_state, safety_controller)
 from cilrs_tpu_torch.agent.npc import npc_controller, pedestrian_step_targets
 from cilrs_tpu_torch.config import SPEED_NORM_FACTOR, WeatherTable
 from cilrs_tpu_torch.core.dynamics import detect_ego_collisions, world_physics_step
@@ -44,6 +49,7 @@ from cilrs_tpu_torch.core.state import TensorTree, VehicleParams, WorldState, tr
 from cilrs_tpu_torch.evaluation.metrics import Metrics, init_metrics, update_metrics
 from cilrs_tpu_torch.maps.network import LIGHT_RED, RoadNetwork, light_state_ages, light_states
 from cilrs_tpu_torch.maps.routing import RoutePool, get_command, is_complete, localize, steer_hint
+from cilrs_tpu_torch.ops.image import normalize
 from cilrs_tpu_torch.render.camera import CameraSpec
 from cilrs_tpu_torch.render.raster import CAMERA, render_frame
 
@@ -61,7 +67,7 @@ HARD_STUCK_S = 75.0  # red-hold backstop: ~3 light cycles with no movement
 OFF_ROAD_STREAK_MAX = 10
 TELEPORT_AHEAD = (5, 10, 15, 20)  # route offsets of the teleport candidates
 
-MODES = ("collect",)
+MODES = ("collect", "drive")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,9 +119,7 @@ def make_driver_state(world: WorldState, route_id: int = 0) -> DriverState:
 
 def _check_mode(mode: str):
     if mode not in MODES:
-        raise NotImplementedError(
-            f"mode {mode!r}: the port runs the collect mode; the drive mode (the policy "
-            "through agent/controller.py:safety_controller) comes with the drive slice")
+        raise ValueError(f"mode {mode!r}; expected one of {MODES}")
 
 
 def env_observe(state: DriverState, net: RoadNetwork, pool: RoutePool,
@@ -134,10 +138,14 @@ def env_observe(state: DriverState, net: RoadNetwork, pool: RoutePool,
     hint = steer_hint(route, route_idx, ego_pos, ego_yaw)
 
     # Teacher labels use the instantaneous corridor only (observable from one
-    # frame). The queue-aware red hold is drive-only: off in collect mode.
-    obs_dist = perception.get_obstacle_distance(world, horizons=(0.0,))
+    # frame); the deploy-time safety layer keeps the predictive horizons. The
+    # queue-aware red hold is drive-only: off in collect mode.
+    drive = mode == "drive"
+    obs_dist = perception.get_obstacle_distance(
+        world, horizons=perception.PREDICT_HORIZONS if drive else (0.0,))
     tl_state, tl_idx = perception.check_traffic_light(net, lights, ego_pos, ego_yaw)
-    red_ahead = torch.zeros_like(tl_state, dtype=torch.bool)
+    red_ahead = perception.red_light_ahead(net, lights, ego_pos, ego_yaw) if drive \
+        else torch.zeros_like(tl_state, dtype=torch.bool)
     on_road = ~perception.ego_off_road(net, ego_pos)
 
     frame = render_frame(net, world, lights, cam)
@@ -166,9 +174,20 @@ def env_act(
     wt: WeatherTable,
     params: VehicleParams,
     mode: str = "collect",
+    nn_controls: torch.Tensor | None = None,
+    loop_routes: bool = True,
+    hold_until_s: float = 0.0,
 ):
-    """Action phase of every env: the autopilot teacher, machines, physics,
-    events, metrics. Consumes the observation dict of ``env_observe``."""
+    """Action phase of every env: the safety cascade on the policy's
+    ``nn_controls`` [E, 3] (drive mode) or the autopilot teacher (collect
+    mode), machines, physics, events, metrics. Consumes the observation dict
+    of ``env_observe``.
+
+    hold_until_s > 0 parks the ego (brake 0.8) in drive mode until that sim
+    time: the benchmark's departure-phase sweep (``cli.drive --depart-delay``).
+    loop_routes=False is the pinned-destination protocol: one attempt, then
+    the car parks a tick after arrival and the metrics freeze.
+    """
     _check_mode(mode)
     world = state.world
     E, dev = world.num_envs, world.veh_pos.device
@@ -179,16 +198,36 @@ def env_act(
     obs_dist, tl_state, tl_idx = obs["obs_dist"], obs["tl_state"], obs["tl_idx"]
     on_road, speed_kmh = obs["on_road"], obs["speed_kmh"]
     ego_pos, ego_yaw = world.ego_pos, world.ego_yaw
+    no_event = torch.zeros(E, dtype=torch.bool, device=dev)
 
-    a_steer, a_thr, a_brk = autopilot_controls(
-        route, route_idx, ego_pos, ego_yaw, speed_kmh, obs_dist, tl_state)
-    control = torch.stack([a_steer, a_thr, a_brk], dim=-1)  # [E, 3]
-    reverse = torch.zeros(E, dtype=torch.bool, device=dev)
-    status = torch.full((E,), ST_OK, dtype=torch.int64, device=dev)
-    red_now = tl_state == LIGHT_RED
-    ctrl2 = state.ctrl.replace(waiting_for_red=red_now)
-    ev_red_light_stop = red_now & ~state.ctrl.waiting_for_red
-    no_event = torch.zeros(E, dtype=torch.bool, device=dev)  # obstacle brake, teleport request
+    if mode == "drive":
+        control, reverse, status, ctrl2, events = safety_controller(
+            net, world, state.ctrl, wt, nn_controls[:, 0], nn_controls[:, 1], nn_controls[:, 2],
+            speed_kmh, cmd, hint, obs_dist, tl_state, obs["red_ahead"])
+        if hold_until_s > 0.0:
+            holding = now < hold_until_s
+            control = torch.where(holding[:, None], const((0.0, 0.0, 0.8), torch.float32, dev),
+                                  control)
+            reverse = reverse & ~holding
+        # Off-road recovery steer: while off the drivable surface, steer
+        # hint-dominant back toward the route at reduced throttle instead of
+        # riding the model's drift into the 10-frame streak teleport.
+        assist = torch.stack([torch.clamp(0.7 * hint + 0.3 * control[:, 0], -1.0, 1.0),
+                              torch.clamp(control[:, 1], max=0.4), control[:, 2]], dim=-1)
+        control = torch.where(on_road[:, None], control, assist)
+        ev_red_light_stop = events["red_light_stop"]
+        ev_obstacle_brake = events["obstacle_brake"]
+        ev_teleport_request = events["teleport_request"]
+    else:
+        a_steer, a_thr, a_brk = autopilot_controls(
+            route, route_idx, ego_pos, ego_yaw, speed_kmh, obs_dist, tl_state)
+        control = torch.stack([a_steer, a_thr, a_brk], dim=-1)  # [E, 3]
+        reverse = no_event
+        status = torch.full((E,), ST_OK, dtype=torch.int64, device=dev)
+        red_now = tl_state == LIGHT_RED
+        ctrl2 = state.ctrl.replace(waiting_for_red=red_now)
+        ev_red_light_stop = red_now & ~state.ctrl.waiting_for_red
+        ev_obstacle_brake = ev_teleport_request = no_event
 
     # --- collision recovery machine ---
     rec_mode, rec_start = state.recovery_mode, state.recovery_start
@@ -248,11 +287,12 @@ def env_act(
     off_streak = torch.where(on_road, 0, state.off_road_streak + 1)
     off_far = off_streak > OFF_ROAD_STREAK_MAX
 
-    # --- teleport (recovery escalation | stuck | off-road streak) ---
-    teleport = escalate | stuck | off_far
+    # --- teleport (recovery escalation | stuck | off-road streak | reverse fallback) ---
+    teleport = escalate | stuck | off_far | ev_teleport_request
     # Cause (0 none / 1 collision-escalate / 2 still / 3 wait / 4 hard-stuck /
     # 5 off-road / 6 reverse-fallback; first-true wins).
-    causes = torch.stack([escalate, stuck_still, waiting_long, hard_stuck, off_far, no_event], dim=1)
+    causes = torch.stack([escalate, stuck_still, waiting_long, hard_stuck, off_far,
+                          ev_teleport_request], dim=1)
     tp_cause = torch.where(teleport, torch.argmax(causes.to(torch.int32), dim=1) + 1, 0)
     # Candidate landing spots ahead on the route, first one clear of actors.
     ahead = const(TELEPORT_AHEAD, torch.int64, dev)
@@ -281,10 +321,19 @@ def env_act(
     off_streak = torch.where(teleport, 0, off_streak)
     had_collision = had_collision & ~teleport
 
-    # --- route completion -> the next route of the env's pool ---
-    completed = is_complete(route, world2.veh_pos[:, 0]) & ~state.route_done
-    route_id2 = torch.where(completed, (state.route_id + 1) % pool.num_routes, state.route_id)
-    route_idx2 = torch.where(completed, 0, route_idx)
+    # --- route completion -> the next route of the env's pool; with
+    # loop_routes=False (the pinned-destination protocol) one attempt, held ---
+    at_dest = is_complete(route, world2.veh_pos[:, 0])
+    completed = at_dest & ~state.route_done
+    if loop_routes:
+        route_id2 = torch.where(completed, (state.route_id + 1) % pool.num_routes, state.route_id)
+        route_idx2 = torch.where(completed, 0, route_idx)
+        route_done2 = no_event
+        new_attempt = completed
+    else:
+        route_id2, route_idx2 = state.route_id, route_idx
+        route_done2 = state.route_done | at_dest
+        new_attempt = no_event
 
     # --- red-light violation: crossing the governing stop line at speed on a
     # red that has been red > 1.5 s (amber-dilemma grace). ---
@@ -304,14 +353,27 @@ def env_act(
     )
     violation_cd = torch.where(violation, now + 5.0, state.violation_cd_until)
 
+    # In the pinned-destination protocol the run is over once the destination
+    # is reached (the previous tick's latch): park the car, freeze the metrics.
+    if not loop_routes:
+        finished = state.route_done
+        park = const((0.0, 0.0, 1.0), torch.float32, dev)
+        world2 = world2.replace(
+            veh_control=_set_ego(world2.veh_control,
+                                 torch.where(finished[:, None], park, world2.veh_control[:, 0])),
+            veh_speed=_set_ego(world2.veh_speed,
+                               torch.where(finished, 0.0, world2.veh_speed[:, 0])))
+
     metrics = update_metrics(
         state.metrics, speed_kmh=speed_kmh, steer=control[:, 0], on_road=on_road, dt=DT,
         now=now, hit_vehicle=hit_v & ~rec_active, hit_walker=hit_w & ~rec_active,
         red_light_stop=ev_red_light_stop, red_light_violation=violation,
-        obstacle_brake=no_event, route_completed=completed,
-        route_attempted=completed,  # a new attempt starts when we loop onward
+        obstacle_brake=ev_obstacle_brake, route_completed=completed,
+        route_attempted=new_attempt,  # a new attempt starts when we loop onward
         teleported=teleport, recovered=start_rec,
     )
+    if not loop_routes:
+        metrics = tree_where(finished, state.metrics, metrics)
 
     new_state = DriverState(
         world=world2,
@@ -329,7 +391,7 @@ def env_act(
         move_anchor_time=m_anchor_time,
         off_road_streak=off_streak,
         violation_cd_until=violation_cd,
-        route_done=state.route_done,
+        route_done=route_done2,
     )
     outputs = {
         # uint8 on the device: 4x less to copy out.
@@ -362,12 +424,23 @@ def fleet_rollout(
     ped_draws: torch.Tensor,  # [T, E, P] uniforms of the pedestrians' re-aim
     mode: str = "collect",
     cam: CameraSpec = CAMERA,
+    policy=None,
+    loop_routes: bool = True,
+    hold_until_s: float = 0.0,
 ):
     """``steps`` ticks of the whole fleet. Returns (final state, outputs), the
     outputs stacked [E, T, ...] on the device, as ``jax.vmap(rollout)``
     stacks them. The pedestrians' draws come from
-    ``agent.npc.draw_pedestrians`` (the tests pass the JAX package's)."""
+    ``agent.npc.draw_pedestrians`` (the tests pass the JAX package's).
+
+    In drive mode ``policy(image [E, H, W, 3] normalized, speed_norm [E],
+    cmd [E]) -> [E, 3]`` runs once a tick, batched over the fleet, under
+    ``torch.inference_mode``, on the normalized float render (not the u8
+    output). The JAX package's single-env ``rollout`` is this with E = 1.
+    """
     _check_mode(mode)
+    if mode == "drive" and policy is None:
+        raise ValueError("drive mode needs a policy")
     world = fleet.world
     if ped_draws.shape != (steps, world.num_envs, world.num_pedestrians):
         raise ValueError(f"ped_draws {tuple(ped_draws.shape)}, expected "
@@ -376,6 +449,16 @@ def fleet_rollout(
     state = fleet
     for t in range(steps):
         obs = env_observe(state, net, pool, cam, mode=mode)
-        state, outs = env_act(state, obs, ped_draws[t], net, pool, wt, params, mode=mode)
+        nn = None
+        if mode == "drive":
+            with torch.inference_mode():
+                nn = policy(normalize(obs["frame"]), obs["speed_norm"], obs["cmd"])
+        state, outs = env_act(state, obs, ped_draws[t], net, pool, wt, params, mode=mode,
+                              nn_controls=nn, loop_routes=loop_routes, hold_until_s=hold_until_s)
         ticks.append(outs)
     return state, {k: torch.stack([o[k] for o in ticks], dim=1) for k in ticks[0]} if ticks else {}
+
+
+def model_policy(model: torch.nn.Module):
+    """A CILRS model as a fleet policy: its controls, without the speed head."""
+    return lambda image, speed_norm, cmd: model(image, speed_norm, cmd)[0]

@@ -39,3 +39,21 @@ def build_map(spec: str):
     if spec == "mini":
         return make_mini_town()
     raise SystemExit(f"unknown --map {spec!r} (use town01 | mini; osm: is not ported yet)")
+
+
+def load_policy(checkpoint: str | None, device="cuda", cfg=None):
+    """The CILRS model the drive CLIs run, in eval mode on ``device``: a
+    ``.pth`` file or a checkpoint directory (its best slot) through
+    ``train.checkpoint.load_policy``, or with no checkpoint the untrained
+    model of ``train.state.create_train_state`` (Flax-style init, seed 0)."""
+    from cilrs_tpu_torch.config import TrainConfig
+    from cilrs_tpu_torch.train.checkpoint import load_policy as load_checkpoint_policy
+    from cilrs_tpu_torch.train.state import create_train_state
+
+    cfg = cfg or TrainConfig()
+    if checkpoint:
+        model = load_checkpoint_policy(checkpoint, cfg, device)
+        print(f"  loaded checkpoint: {checkpoint} (speed_skip={model.speed_skip})")
+        return model
+    print("  WARNING: no --checkpoint given; driving with an untrained policy")
+    return create_train_state(cfg, 0, device=device).model.eval()

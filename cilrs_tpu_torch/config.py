@@ -4,8 +4,8 @@ A copy of the plain dataclasses of ``cilrs_tpu/config.py`` (that module imports
 JAX for its device-side weather table, so the port keeps its own), plus the
 per-weather ``WeatherTable`` as [num_weathers] tensors on a device, read from
 the shared ``configs/weather.json`` and indexed by each env's weather index.
-The controller's weather-adaptive configs belong to the drive mode and are not
-here yet.
+``ScoringConfig`` holds the closed-loop scoring weights and grades of the
+shared ``configs/weather.json``.
 """
 
 from __future__ import annotations
@@ -51,6 +51,18 @@ class WeatherTable:
     @property
     def num_weathers(self) -> int:
         return self.max_speed_kmh.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class ScoringConfig:
+    collision_penalty: float = 15.0
+    red_light_violation_penalty: float = 10.0
+    off_road_penalty_factor: float = 40.0
+    safety_weight: float = 0.6
+    comfort_weight: float = 0.3
+    route_completion_weight: float = 0.1
+    comfort_jerk_factor: float = 1000.0
+    grades: tuple = (("A+", 90.0), ("A", 80.0), ("B+", 70.0), ("B", 60.0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +154,15 @@ def load_weather_table(path: str | None = None, device="cpu") -> WeatherTable:
         return torch.tensor(vals, dtype=torch.float32, device=device)
 
     return WeatherTable(**{f.name: col(f.name) for f in dataclasses.fields(WeatherTable)})
+
+
+def load_scoring_config(path: str | None = None) -> ScoringConfig:
+    raw = load_weather_config(path).get("scoring", {})
+    grades = raw.pop("grades", None)
+    cfg = _sub(ScoringConfig, raw)
+    if grades:
+        cfg = dataclasses.replace(cfg, grades=tuple(sorted(grades.items(), key=lambda kv: -kv[1])))
+    return cfg
 
 
 def weather_index(name: str) -> int:

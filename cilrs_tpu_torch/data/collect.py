@@ -80,7 +80,7 @@ def make_collect_fleet(
     num_envs: int = 16,
     num_vehicles: int = 12,
     num_pedestrians: int = 6,
-    weather_idx: int = 0,
+    weather_idx: int | None = 0,
     seed: int = 0,
     chunk_steps: int = 100,
     cam: CameraSpec = CAMERA,
@@ -88,16 +88,20 @@ def make_collect_fleet(
 ) -> CollectFleet:
     """Per-env chained route pools and spawns (host numpy, from one
     ``RandomState(seed)`` consumed as the JAX package consumes it), moved to
-    the device as one batched fleet."""
+    the device as one batched fleet. ``weather_idx=None`` mixes the weathers,
+    env e in weather e % 5 (the JAX package's ``data/resident.py:make_fleet``,
+    which sets the fleet up as ``collect_session`` does but for the per-env
+    PRNG keys the fleet's generator stands for here)."""
     dev = require_cuda(device)
     rng = np.random.RandomState(seed)
     h = net.host
     pools, worlds = [], []
-    for _ in range(num_envs):
+    for e in range(num_envs):
         pool, meta = chained_route_pool(net, rng, num_routes=ROUTES_PER_ENV, min_dist=60.0,
                                         max_dist=280.0, with_meta=True)
         start_wp = meta["start_wps"][0]
-        world = spawn_world(net, num_vehicles, num_pedestrians, rng, weather_idx=weather_idx)
+        w_idx = e % len(WEATHER_NAMES) if weather_idx is None else weather_idx
+        world = spawn_world(net, num_vehicles, num_pedestrians, rng, weather_idx=w_idx)
         world["veh_pos"][0] = h.wp_xy[start_wp]
         world["veh_yaw"][0] = h.wp_yaw[start_wp]
         pools.append(pool)

@@ -3,8 +3,8 @@
 
 Distance/time/speed accumulation, steering jerk, off-road frames, collisions
 by actor type with the reference's 3 s per-type cooldown, red-light stops and
-violations, route counters. Scoring formulas live in
-``evaluation/scoring.py`` of the JAX package and come with the drive slice.
+violations, route counters. The scoring formulas are in
+``evaluation/scoring.py``.
 """
 
 from __future__ import annotations

@@ -28,6 +28,14 @@ class CameraSpec:
         return math.tan(math.radians(self.fov_deg) / 2.0)
 
 
+# Third-person spectator rig for the drive CLI's chase view: behind and above
+# the ego, pitched down (the reference's chase-cam placement).
+CHASE_CAMERA = CameraSpec(
+    width=320, height=180, fov_deg=90.0,
+    offset_fwd=-7.5, offset_up=3.2, pitch_deg=-12.0,
+)
+
+
 def pixel_coords(spec: CameraSpec, device) -> tuple[torch.Tensor, torch.Tensor]:
     """Pixel-centre coordinates (u, v) in [0, 1], each [H, W] (meshgrid 'xy')."""
     u = (torch.arange(spec.width, dtype=torch.float32, device=device) + 0.5) / spec.width

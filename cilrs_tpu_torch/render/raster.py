@@ -286,11 +286,9 @@ def render_frame(
     world: WorldState,
     light_state: torch.Tensor,  # [E, L] from maps.network.light_states
     spec: CameraSpec = CAMERA,
+    include_ego: bool = False,  # True for chase/spectator views
 ) -> torch.Tensor:
-    """Render each env's ego front camera. Returns [E, H, W, 3] float32 in [0, 1].
-
-    (The JAX function's ``include_ego`` chase view belongs to the drive CLI
-    and comes with it.)"""
+    """Render each env's camera. Returns [E, H, W, 3] float32 in [0, 1]."""
     H, W = spec.height, spec.width
     E = world.num_envs
     dev = world.veh_pos.device
@@ -321,19 +319,21 @@ def render_frame(
     g = torch.clamp(g + (amp * tex)[..., None], 0.0, 1.0)
     ground_color = g * (1 - marking[..., None]) + _color(_MARKING, dev) * marking[..., None]
 
-    # --- vehicles (all except the ego) and the K nearest buildings: one
-    # merged slab pass over vertical boxes, in camera-centered coordinates ---
-    V1 = world.num_vehicles - 1  # every vehicle but the ego
+    # --- vehicles (all but the ego, unless a chase view includes it) and the
+    # K nearest buildings: one merged slab pass over vertical boxes, in
+    # camera-centered coordinates ---
+    lo = 0 if include_ego else 1
+    V1 = world.num_vehicles - lo
     Bg = net.bldg_xy.shape[0]
     KB = min(NUM_NEAR_BUILDINGS, Bg)
     veh_pal = const(tuple(_VEH_COLORS[(i + 1) % len(_VEH_COLORS)] for i in range(V1)),
                     torch.float32, dev)
-    box_xy = [world.veh_pos[:, 1:] - o_xy[:, None]]
-    box_yaw = [world.veh_yaw[:, 1:]]
+    box_xy = [world.veh_pos[:, lo:] - o_xy[:, None]]
+    box_yaw = [world.veh_yaw[:, lo:]]
     box_hl = [torch.full((E, V1), 4.7 / 2, dtype=torch.float32, device=dev)]
     box_hw = [torch.full((E, V1), 2.0 / 2, dtype=torch.float32, device=dev)]
     box_h = [torch.full((E, V1), VEH_HEIGHT, dtype=torch.float32, device=dev)]
-    box_alive = [world.veh_alive[:, 1:]]
+    box_alive = [world.veh_alive[:, lo:]]
     box_pal = [veh_pal.reshape(1, V1, 3).expand(E, V1, 3)]
     if Bg > 0:
         d2b = torch.sum((net.bldg_xy - ego_pos[:, None]) ** 2, dim=-1)  # [E, Bg]

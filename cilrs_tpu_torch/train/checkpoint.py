@@ -147,22 +147,33 @@ def restore_best_params(ckpt_dir: str, state: TrainState) -> TrainState:
     return state
 
 
+def _stage_sizes(sd: dict) -> tuple:
+    """Blocks in each of the trunk's four stages (``visual_encoder.4`` to
+    ``.7``) of a CILRS state dict."""
+    return tuple(len({k.split(".")[2] for k in sd if k.startswith(f"visual_encoder.{4 + s}.")})
+                 for s in range(4))
+
+
 def load_policy(path: str, cfg: TrainConfig | None = None, device="cuda") -> CILRS:
     """Notebook-format checkpoint -> CILRS in eval mode on ``device``.
 
-    The architecture follows the checkpoint: ``speed_skip`` is on exactly when
-    it holds ``speed_skip_w`` (a reference checkpoint has none). On the card
-    the trunk computes in bf16 under autocast (the JAX CILRS's default dtype)
-    with ``channels_last`` weights, and TF32 is turned off for what runs in
-    float32 (``configure_numerics``); on the CPU everything is float32.
+    ``path`` is a ``.pth`` file or a checkpoint directory, read through its
+    best slot (``restore_best_payload``). The architecture follows the
+    checkpoint: ``speed_skip`` is on exactly when it holds ``speed_skip_w`` (a
+    reference checkpoint has none), and the trunk's stage depths are counted
+    from its blocks. On the card the trunk computes in bf16 under autocast
+    (the JAX CILRS's default dtype) with ``channels_last`` weights, and TF32
+    is turned off for what runs in float32 (``configure_numerics``); on the
+    CPU everything is float32.
     """
     dev = require_cuda(device)
     if dev.type == "cuda":
         configure_numerics()
     cfg = cfg or TrainConfig()
-    sd = load_checkpoint(path)["model_state_dict"]
+    payload = restore_best_payload(path) if os.path.isdir(path) else load_checkpoint(path)
+    sd = payload["model_state_dict"]
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     model = CILRS(num_commands=cfg.model.num_commands, dropout=cfg.model.dropout, dtype=dtype,
-                  stage_sizes=tuple(cfg.model.stage_sizes), speed_skip="speed_skip_w" in sd)
+                  stage_sizes=_stage_sizes(sd), speed_skip="speed_skip_w" in sd)
     model.load_state_dict(sd)
     return model.to(dev, memory_format=torch.channels_last).eval()

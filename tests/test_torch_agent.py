@@ -366,7 +366,26 @@ def test_fleet_rollout_matches_jax(nets, scenario):
         assert (moved > 2.0).all()  # from a standstill, 2.5 s
 
 
-def test_drive_mode_is_not_ported_yet(nets):
-    _, tnet = nets
-    with pytest.raises(NotImplementedError, match="drive slice"):
-        td.env_observe(None, tnet, None, mode="drive")
+def test_drive_mode_runs(nets):
+    """Drive mode runs a policy through the safety cascade (its parity with
+    the JAX package is tests/test_torch_drive.py); drive mode without a
+    policy, and a mode the port does not know, raise."""
+    jnet, tnet = nets
+    pools, states = _fleet(jnet, "traffic", E=2)
+    state = driver_state_from_arrays([tree_np(s) for s in states])
+    pool = pool_from_arrays([tree_np(p) for p in pools])
+    wt, params, draws = tc.load_weather_table(), t_params(), torch.rand(3, 2, 2)
+
+    def policy(img, speed_norm, cmd):
+        assert img.shape == (2, 88, 200, 3) and img.dtype == torch.float32
+        return torch.stack([img.mean(dim=(1, 2, 3)) * 0.0, speed_norm * 0.0 + 0.5,
+                            cmd.float() * 0.0], dim=-1)
+
+    final, outs = td.fleet_rollout(state, 3, tnet, pool, wt, params, draws, mode="drive",
+                                   policy=policy)
+    assert outs["control"].shape == (2, 3, 3) and outs["frame"].shape == (2, 3, 88, 200, 3)
+    np.testing.assert_allclose(final.world.time_s.numpy(), 0.15, atol=1e-6)
+    with pytest.raises(ValueError, match="policy"):
+        td.fleet_rollout(state, 3, tnet, pool, wt, params, draws, mode="drive")
+    with pytest.raises(ValueError, match="mode"):
+        td.env_observe(state, tnet, pool, mode="fly")

@@ -264,11 +264,16 @@ def test_port_imports_without_jax():
     assert int(res.stdout.split()[-1]) >= 15
 
 
-@pytest.mark.parametrize("entry", ["require_cuda", "ship_resident", "load_policy", "cli"])
+@pytest.mark.parametrize("entry", ["require_cuda", "ship_resident", "load_policy", "cli",
+                                   "cli_drive", "cli_benchmark", "cli_pipeline",
+                                   "collect_resident"])
 def test_no_cpu_fallback(entry, tmp_path, monkeypatch):
     """Entry points called with the default device raise when there is no GPU."""
+    from cilrs_tpu_torch.cli import benchmark, drive, pipeline
     from cilrs_tpu_torch.cli import report as cli
     from cilrs_tpu_torch.cli.common import require_cuda
+    from cilrs_tpu_torch.data.resident import collect_resident
+    from cilrs_tpu_torch.maps.town import make_mini_town
     from cilrs_tpu_torch.train.checkpoint import load_policy
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -282,6 +287,12 @@ def test_no_cpu_fallback(entry, tmp_path, monkeypatch):
         "load_policy": lambda: load_policy(ckpt),
         "cli": lambda: cli.main(["--data", str(tmp_path / "s"), "--checkpoint", ckpt,
                                  "--out", str(tmp_path / "r.json")]),
+        "cli_drive": lambda: drive.main(["--map", "mini", "--checkpoint", ckpt,
+                                         "--report-json", str(tmp_path / "r.json")]),
+        "cli_benchmark": lambda: benchmark.main(["--map", "mini", "--out", str(tmp_path / "r.json")]),
+        "cli_pipeline": lambda: pipeline.main(["--workdir", str(tmp_path / "w"), "--resident",
+                                               "--map", "mini"]),
+        "collect_resident": lambda: collect_resident(make_mini_town(), 10, num_envs=1),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         call()
