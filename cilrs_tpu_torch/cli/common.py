@@ -29,16 +29,19 @@ def configure_numerics() -> None:
 
 
 def build_map(spec: str):
-    """--map town01 (default) | mini. The JAX package's ``osm:<path>`` waits
-    for the port of ``maps/osm.py``. The network is built on the CPU;
-    callers move it."""
+    """--map town01 (default) | mini | osm:<path.osm>. The network is built
+    on the CPU; callers move it."""
     from cilrs_tpu_torch.maps.town import make_mini_town, make_town01
 
     if spec in ("town01", "Town01", ""):
         return make_town01()
     if spec == "mini":
         return make_mini_town()
-    raise SystemExit(f"unknown --map {spec!r} (use town01 | mini; osm: is not ported yet)")
+    if spec.startswith("osm:"):
+        from cilrs_tpu_torch.maps.osm import load_osm_network
+
+        return load_osm_network(spec[4:])
+    raise SystemExit(f"unknown --map {spec!r} (use town01 | mini | osm:<path>)")
 
 
 def load_policy(checkpoint: str | None, device="cuda", cfg=None):

@@ -1,1 +1,2 @@
-"""Offline evaluation: predictions over a resident table, report metrics."""
+"""Offline evaluation: predictions over a resident table, report metrics,
+scores, the HUD and the residual breakdown."""

@@ -1,2 +1,2 @@
-"""Road networks as flat arrays: procedural towns, routing, queries (port of
-``cilrs_tpu/maps``). ``maps/osm.py`` (OSM import) is not ported yet."""
+"""Road networks as flat arrays: procedural towns, OSM import, routing,
+queries (port of ``cilrs_tpu/maps``)."""

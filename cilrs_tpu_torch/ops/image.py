@@ -1,14 +1,14 @@
-"""ImageNet normalization and train-time augmentation (port of
+"""Resizing, ImageNet normalization and train-time augmentation (port of
 ``cilrs_tpu/ops/image.py``).
 
-``augment_batch`` is split in two: ``draw_augment`` takes every random draw
-of one batch from an explicit ``torch.Generator`` (the per-sample apply
-masks, brightness, contrast, hue and saturation shifts, noise and cutout
-centres, shaped as the JAX function draws them), and ``apply_augment`` is the
-pure function of (images, draws), which the tests drive with the JAX
-package's own draws. Plain torch, on [B, H, W, 3] images in [0, 1].
-
-Frame resizing goes with the closed-loop drive and is not here yet.
+Preprocessing matches the reference inference path: resize to 200x88, scale
+to [0, 1], normalize. ``augment_batch`` is split in two: ``draw_augment``
+takes every random draw of one batch from an explicit ``torch.Generator``
+(the per-sample apply masks, brightness, contrast, hue and saturation shifts,
+noise and cutout centres, shaped as the JAX function draws them), and
+``apply_augment`` is the pure function of (images, draws), which the tests
+drive with the JAX package's own draws. Plain torch, on [B, H, W, 3] images
+in [0, 1].
 """
 
 from __future__ import annotations
@@ -16,9 +16,11 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+TARGET_H, TARGET_W = 88, 200
 
 # Probability that each augmentation applies to a sample (the notebook's
 # Albumentations stack, cilrs_tpu/ops/image.py:85-93).
@@ -41,6 +43,27 @@ def normalize(img01: torch.Tensor) -> torch.Tensor:
     """ImageNet-normalize an NHWC image already in [0, 1]."""
     mean, std = _mean_std(img01.device)
     return (img01 - mean) / std
+
+
+def resize_frame(img: torch.Tensor, height: int = TARGET_H, width: int = TARGET_W) -> torch.Tensor:
+    """Bilinear resize [..., H, W, C] -> [..., height, width, C] in float32.
+    Antialiased when it shrinks, as ``jax.image.resize(method="bilinear")``
+    is (half-pixel centres)."""
+    lead, (h, w, c) = img.shape[:-3], img.shape[-3:]
+    x = img.float().reshape((-1, h, w, c)).permute(0, 3, 1, 2)
+    y = F.interpolate(x, size=(height, width), mode="bilinear", align_corners=False,
+                      antialias=True)
+    return y.permute(0, 2, 3, 1).reshape(lead + (height, width, c))
+
+
+def preprocess_frame(img: torch.Tensor, resize: bool = True) -> torch.Tensor:
+    """uint8 (0-255) or float (0-1) RGB frame(s) -> normalized float32 NHWC input."""
+    x = img.float()
+    if img.dtype == torch.uint8:
+        x = x / 255.0
+    if resize and (img.shape[-3] != TARGET_H or img.shape[-2] != TARGET_W):
+        x = resize_frame(x)
+    return normalize(torch.clamp(x, 0.0, 1.0))
 
 
 def _vec_rgb_to_hsv(rgb: torch.Tensor) -> torch.Tensor:

@@ -82,16 +82,24 @@ def wet_darken(weather_idx: torch.Tensor, road_color: torch.Tensor) -> torch.Ten
 
 
 def hash_sin(x: torch.Tensor, a: float, y: torch.Tensor) -> torch.Tensor:
-    """sin(x*a + y) as the JAX package's hashes compute it under jit on
-    XLA:CPU: the argument with one rounding (XLA contracts it into a fused
-    multiply-add) and sin correctly rounded (XLA:CPU's sin is the C library's
-    sinf, within an ulp of that).
+    """sin(x*a + y) in float32 with the argument rounded once, as XLA
+    contracts it into a fused multiply-add under jit, and sin correctly
+    rounded.
 
     The hashes feed sin(.) * 43758.5 with arguments up to about 1e5, where one
     rounding step of the argument, or one ulp of sin, moves the noise value
     by up to its whole range. x*a is exact in float64 (x and a are float32),
     so the float64 sum rounded once to float32 is the FMA's result; sin is
-    then taken in float64 and rounded once."""
+    then taken in float64 and rounded once.
+
+    The argument matches XLA's; sin does not always. XLA:CPU's float32 sin,
+    jitted, is glibc's ``sinf`` bit for bit, and ``sinf`` is not correctly
+    rounded: on the rain hash's arguments (``x`` the integers 0-199,999) it
+    differs from this function by one ulp on 1.3% of them, and a streak
+    column's phase with it (ROADMAP Queue 3; tests/test_torch_render.py pins
+    the share). Matching it would take glibc's range reduction and
+    polynomial, in the FMA variant its ifunc picks; a float32 sin on the
+    card (CUDA's ``sinf``) would differ again."""
     a32 = torch.tensor(a, dtype=torch.float32).item()
     arg = (x.double() * a32 + y.double()).float()
     return torch.sin(arg.double()).float()

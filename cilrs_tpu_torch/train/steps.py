@@ -39,6 +39,27 @@ def step_seeds(seed: int, step: int) -> tuple[int, int]:
     return int(a), int(d)
 
 
+def make_train_forward():
+    """The train-mode forward of a step: u8 -> /255 -> augmentation ->
+    normalize -> the model in train mode, with the draws of update
+    ``state.step`` of a run seeded ``seed``. Returns (controls, pred_speed)."""
+    generators: dict[torch.device, torch.Generator] = {}
+
+    def forward(state: TrainState, batch: dict, seed: int):
+        dev = batch["images"].device
+        aug_seed, drop_seed = step_seeds(seed, state.step)
+        if dev not in generators:
+            generators[dev] = torch.Generator(device=dev)
+        gen = generators[dev].manual_seed(aug_seed)
+        x = normalize(augment_batch(gen, batch["images"].float() / 255.0))
+        model = state.model.train()
+        with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+            torch.manual_seed(drop_seed)
+            return model(x, batch["speed"], batch["command"])
+
+    return forward
+
+
 def make_train_step(cfg: TrainConfig):
     loss_cfg = cfg.loss
     if cfg.training.speed_loss_boost != 1.0 or cfg.training.brake_loss_boost != 1.0:
@@ -49,22 +70,13 @@ def make_train_step(cfg: TrainConfig):
             speed_weight=loss_cfg.speed_weight * cfg.training.speed_loss_boost,
             brake_weight=loss_cfg.brake_weight * cfg.training.brake_loss_boost,
         )
-    generators: dict[torch.device, torch.Generator] = {}
+    forward = make_train_forward()
 
     def train_step(state: TrainState, batch: dict, seed: int) -> dict:
         """batch: images [B,H,W,3] u8, speed [B], command [B], controls [B,3],
         on the model's device. Updates ``state`` in place and returns the loss
         parts as device tensors (no host sync)."""
-        dev = batch["images"].device
-        aug_seed, drop_seed = step_seeds(seed, state.step)
-        if dev not in generators:
-            generators[dev] = torch.Generator(device=dev)
-        gen = generators[dev].manual_seed(aug_seed)
-        x = normalize(augment_batch(gen, batch["images"].float() / 255.0))
-        model = state.model.train()
-        with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
-            torch.manual_seed(drop_seed)
-            controls, pred_speed = model(x, batch["speed"], batch["command"])
+        controls, pred_speed = forward(state, batch, seed)
         total, parts = cilrs_loss(controls, pred_speed, batch["controls"], batch["speed"], loss_cfg)
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()

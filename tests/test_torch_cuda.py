@@ -197,3 +197,37 @@ def test_collect_chunk_never_waits_for_the_card(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert outs["frame"].shape == (2, 5, 88, 200, 3) and outs["frame"].is_cuda
+
+
+def test_fused_ring_and_sampler_on_card_match_cpu(cuda_device):
+    """The fused loop's ring and sampler on the card against the CPU: the
+    same chunks (one wraps the 600-slot ring of 88x200 frames) and the same
+    injected draws give a bit-identical ring, bookkeeping, picks and batch,
+    and weights within 1e-6; each batch's frames are one launch of the
+    row-gather kernel."""
+    from cilrs_tpu_torch.train import fused as tf
+
+    rng = np.random.RandomState(0)
+    bufs = {d: tf.make_buffer(600, 88, 200, device=d) for d in ("cpu", cuda_device)}
+    for m in (320, 320, 150):
+        chunk = (rng.randint(0, 256, (m, 88, 200, 3)).astype(np.uint8),
+                 rng.uniform(0, 100, m).astype(np.float32), rng.randint(0, 4, m).astype(np.int32),
+                 rng.uniform(-1, 1, (m, 3)).astype(np.float32), rng.uniform(size=m) < 0.7)
+        for d, buf in bufs.items():
+            tf.write_chunk(buf, *(torch.from_numpy(a).to(d) for a in chunk))
+    cpu, gpu = bufs["cpu"], bufs[cuda_device]
+    assert (gpu.cursor, gpu.filled) == (cpu.cursor, cpu.filled) == (190, 600)
+    for f in ("images", "speed", "command", "controls", "valid", "total_written", "cmd_counts"):
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+    for seed in range(3):
+        draws = tf.draw_indices(torch.Generator().manual_seed(seed), 120, gpu.filled)
+        before = tg.gather_rows_paged.launches
+        got = tf.sample_batch(gpu, draws.to(cuda_device))
+        torch.cuda.synchronize()
+        assert tg.gather_rows_paged.launches == before + 1
+        want = tf.sample_batch(cpu, draws)
+        for k in want:
+            if k == "weights":  # a mean over the batch, summed in another order
+                assert torch.allclose(got[k].cpu(), want[k], rtol=0, atol=1e-6)
+            else:
+                assert torch.equal(got[k].cpu(), want[k]), k

@@ -23,7 +23,11 @@ Tolerances:
  - one tick with a real CILRS (stage_sizes (1, 1, 1, 1), float32 on both
    sides): controls within 1e-3, the tolerance of tests/test_torch_model.py
    (both packages round the branch heads' first product to bf16);
- - ``compute_scores`` within 1e-4 of its value, ``format_report`` equal.
+ - ``compute_scores`` within 1e-4 of its value, ``format_report`` equal;
+ - ``DashboardHUD.compose``: the same canvas, exactly (both packages draw
+   with the same OpenCV calls);
+ - ``cli.drive --view chase --save-video``: an mp4 that OpenCV reads back,
+   one frame a chunk.
 """
 
 import argparse
@@ -510,3 +514,56 @@ def test_cli_benchmark_on_cpu(tmp_path):
     assert md[:-1] == want[:-1] and len(md) == 12
     assert md[-1].split(" Generated")[0] == want[-1].split(" Generated")[0]
     assert md[4].startswith("| Weather | Overall | Grade |")
+
+
+HUD_CASES = {
+    "float_frame_ok": dict(speed_kmh=23.4, command=0, steer=0.12, throttle=0.55, brake=0.0,
+                           tl_state=0, obstacle_dist=40.0, dest_remaining_m=812.0, status=0,
+                           safety_pct=97.5, distance_m=120.3, collisions=0, weather="clear"),
+    "u8_frame_red_close": dict(speed_kmh=4.0, command=1, steer=-0.8, throttle=0.0, brake=0.9,
+                               tl_state=2, obstacle_dist=5.0, dest_remaining_m=15.0, status=1,
+                               safety_pct=61.0, distance_m=840.0, collisions=2, weather="night"),
+    "str_status_warn": dict(speed_kmh=31.0, command=3, steer=0.4, throttle=0.2, brake=0.3,
+                            tl_state=1, obstacle_dist=11.0, dest_remaining_m=0.0,
+                            status="TELEPORT", safety_pct=0.0, distance_m=0.0, collisions=9,
+                            weather="hardrain"),
+}
+
+
+@pytest.mark.parametrize("case", list(HUD_CASES))
+def test_hud_compose_matches_jax(case):
+    from cilrs_tpu.evaluation.hud import DashboardHUD as JHUD
+    from cilrs_tpu_torch.evaluation.hud import HAS_CV2, DashboardHUD
+
+    assert HAS_CV2
+    frame = np.random.RandomState(len(case)).uniform(-0.1, 1.1, (88, 200, 3)).astype(np.float32)
+    if case.startswith("u8"):
+        frame = (np.clip(frame, 0, 1) * 255).astype(np.uint8)
+    got = DashboardHUD().compose(frame, **HUD_CASES[case])
+    want = JHUD().compose(frame, **HUD_CASES[case])
+    assert got.shape == want.shape == (540, 960, 3) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+
+
+def test_cli_drive_chase_view_saves_a_video(tmp_path):
+    """The chase view (``render_frame(CHASE_CAMERA, include_ego=True)``) and
+    the HUD video writer: one composed 960x540 frame a chunk of 40 ticks."""
+    import cv2
+
+    spawn, dest = _mini_route_pair(tt.make_mini_town())
+    video = tmp_path / "drive.mp4"
+    drive_cli.main(["--map", "mini", "--device", "cpu", "--duration", "4", "--spawn", str(spawn),
+                    "--destination", str(dest), "--vehicles", "3", "--pedestrians", "1",
+                    "--no-hud", "--autopilot", "--view", "chase", "--save-video", str(video)])
+    cap = cv2.VideoCapture(str(video))
+    try:
+        frames = []
+        while True:
+            ok, img = cap.read()
+            if not ok:
+                break
+            frames.append(img)
+    finally:
+        cap.release()
+    assert len(frames) == 2  # 4 s = 80 ticks = 2 chunks
+    assert all(f.shape == (540, 960, 3) for f in frames) and frames[0].std() > 5

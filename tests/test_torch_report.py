@@ -266,13 +266,15 @@ def test_port_imports_without_jax():
 
 @pytest.mark.parametrize("entry", ["require_cuda", "ship_resident", "load_policy", "cli",
                                    "cli_drive", "cli_benchmark", "cli_pipeline",
-                                   "collect_resident"])
+                                   "collect_resident", "cli_fused", "residuals", "prepare"])
 def test_no_cpu_fallback(entry, tmp_path, monkeypatch):
     """Entry points called with the default device raise when there is no GPU."""
-    from cilrs_tpu_torch.cli import benchmark, drive, pipeline
+    from cilrs_tpu_torch.cli import benchmark, drive, fused, pipeline
     from cilrs_tpu_torch.cli import report as cli
     from cilrs_tpu_torch.cli.common import require_cuda
+    from cilrs_tpu_torch.data import prepare
     from cilrs_tpu_torch.data.resident import collect_resident
+    from cilrs_tpu_torch.evaluation import residuals
     from cilrs_tpu_torch.maps.town import make_mini_town
     from cilrs_tpu_torch.train.checkpoint import load_policy
 
@@ -293,6 +295,10 @@ def test_no_cpu_fallback(entry, tmp_path, monkeypatch):
         "cli_pipeline": lambda: pipeline.main(["--workdir", str(tmp_path / "w"), "--resident",
                                                "--map", "mini"]),
         "collect_resident": lambda: collect_resident(make_mini_town(), 10, num_envs=1),
+        "cli_fused": lambda: fused.main(["--map", "mini", "--ckpt-dir", str(tmp_path / "r.json")]),
+        "residuals": lambda: residuals.main(["--checkpoint", ckpt, "--map", "mini",
+                                             "--out", str(tmp_path / "r.json")]),
+        "prepare": lambda: prepare.main([str(tmp_path / "s"), str(tmp_path / "r.json")]),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         call()
