@@ -91,7 +91,23 @@ end to end at the full width of the repo's model (CILRS, ResNet-34 trunk,
      ``data.prepare.process_session`` on the card against the CPU, u8
      within 1 level;
  17. osm_collect: the inline OSM campus through ``build_map("osm:...")``,
-     one 20-tick collect chunk of 4 envs on the card, finite poses.
+     one 20-tick collect chunk of 4 envs on the card, finite poses;
+ 18. fused_sharded_full_size: the call of 14 under ``torchrun --standalone
+     --nproc_per_node 1`` (its rank program is this script with
+     ``--fused-rank``): the sharded path in a world of 1 over NCCL, held to
+     14's run (frames, the first batch's rows, the first chunk's losses, the
+     history), ms a collect and a train chunk on both paths, the NCCL calls a
+     chunk, peak memory, the gather kernel's launches, the rank-0 checkpoint
+     through load_policy;
+ 19. parallel_two_ranks_one_card: two ranks on the one card over gloo (NCCL
+     refuses two ranks on one GPU): the sharded collect rollout (16 envs,
+     20 ticks) and one weighted fused step and one data-parallel loop step
+     (dropout 0.5) at full width, batch 120 (60 a rank), world 2 against
+     world 1, the ranks' weights bit-identical;
+ 20. switches_check: the renderer's three switches (a night and a clear
+     frame, card against CPU) and drive_check with the drive switches, each
+     in a process of its own (``--phase``), then the gather kernel on one
+     page past 2^33 bytes (CILRS_TPU_ALLOW_BIG_TABLE's layout).
 
 Prints one JSON line per phase, then the kernels line, the card's name and
 power limit, and last {"ok": true, "device": {...}}. A failed phase ends the
@@ -102,9 +118,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import json
 import math
 import os
+import signal
+import socket
+import subprocess
 import sys
 import tempfile
 import time
@@ -113,6 +133,8 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as torch_mp
 
 from cilrs_tpu_torch.agent import driver as driver_mod
 from cilrs_tpu_torch.agent.driver import fleet_rollout, model_policy
@@ -127,6 +149,7 @@ from cilrs_tpu_torch.cli import report as report_cli
 from cilrs_tpu_torch.cli import train as train_cli
 from cilrs_tpu_torch.cli.common import build_map
 from cilrs_tpu_torch.config import WEATHER_NAMES, load_train_config
+from cilrs_tpu_torch.core.state import make_world
 from cilrs_tpu_torch.data import prepare as prepare_mod
 from cilrs_tpu_torch.data.collect import HOST_KEYS, MIN_SPEED_KMH, make_collect_fleet
 from cilrs_tpu_torch.data.dataset import (WeightedBatchSampler, load_sessions,
@@ -135,6 +158,7 @@ from cilrs_tpu_torch.data.resident import gather_group, labels_dataset
 from cilrs_tpu_torch.evaluation import residuals as residuals_mod
 from cilrs_tpu_torch.evaluation.report import GROUP_BATCHES, collect_predictions_resident
 from cilrs_tpu_torch.evaluation.scoring import compute_scores
+from cilrs_tpu_torch.maps.network import light_states
 from cilrs_tpu_torch.maps.town import make_town01
 from cilrs_tpu_torch.models.cilrs import CILRS
 from cilrs_tpu_torch.models.losses import cilrs_loss
@@ -142,11 +166,14 @@ from cilrs_tpu_torch.ops.build import build
 from cilrs_tpu_torch.ops.gather import (bulk_plan, gather_rows_paged, gather_rows_plain,
                                         paged_layout)
 from cilrs_tpu_torch.ops.image import apply_augment, draw_augment, normalize
+from cilrs_tpu_torch.parallel.fleet import make_sharded_rollout
+from cilrs_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from cilrs_tpu_torch.render import raster as raster_mod
 from cilrs_tpu_torch.train import checkpoint as ckpt_mod
 from cilrs_tpu_torch.train import fused as fused_mod
 from cilrs_tpu_torch.train.checkpoint import load_policy, save_checkpoint_pth
-from cilrs_tpu_torch.train.loop import EVAL_GROUP_BATCHES, STEPS_PER_CALL, train, train_group
+from cilrs_tpu_torch.train.loop import (EVAL_GROUP_BATCHES, STEPS_PER_CALL, running_stats, train,
+                                        train_group)
 from cilrs_tpu_torch.train.state import create_train_state
 from cilrs_tpu_torch.train.steps import make_train_step
 
@@ -259,6 +286,42 @@ OSM_XML = """<?xml version='1.0' encoding='UTF-8'?>
   <way id='103'><nd ref='2'/><nd ref='7'/><tag k='highway' v='footway'/></way>
 </osm>
 """
+# fused_sharded_full_size: cli.fused's full-width call under torchrun, a
+# world of 1 over NCCL, held to fused_full_size's run on the same seed (rank
+# 0's sampler stream and pedestrian draws are the single path's): frames and
+# the first batch's rows exact, the first train chunk's losses within 1e-3
+# relative, the history at step 200 within SHARDED_HISTORY_TOL. A world of 1
+# computes the single path's arithmetic (the all-reduces copy), and on an
+# H100 the two histories were bit-identical (PERF.md); the tolerance is
+# the margin for a cuDNN backward that sums with atomics, whose rounding 200
+# Adam steps would carry into the held-out losses.
+SHARDED_TIMEOUT_S = 600
+SHARDED_LOSS_RTOL = 1e-3
+SHARDED_HISTORY_TOL = {"rtol": 1e-2, "atol": 1e-3}
+# parallel_two_ranks_one_card: two ranks on cuda:0 over gloo. (a) the
+# sharded collect rollout, world 2 against world 1, at collect_check's
+# tolerances; (b) one weighted fused step and one data-parallel loop step at
+# full width, batch 120 (60 a rank), at tests/test_parallel.py:171-172's
+# bounds. The fused step normalizes each shard by its own batch statistics
+# (the JAX loop's shard_map), so its world-1 reference is the two 60-frame
+# shards computed in one process with their gradients, running statistics
+# and losses averaged; the loop's step is one global batch, held to world 1
+# on all 120 frames at the config's dropout (0.5): each rank applies its
+# rows of the global batch's masks, which are world 1's.
+TWO_RANK_ENVS, TWO_RANK_TICKS, TWO_RANK_SEED = 16, 20, 5
+FUSED_STEP_SEED = 7
+DP_LOSS_RTOL, DP_PARAM_ATOL = 5e-3, 5e-4
+TWO_RANK_TIMEOUT_S = 600
+# switches_check: the renderer's three switches on a night and a clear
+# frame (Town01, the ego 9 m before a light, braking NPCs), card against
+# CPU, at test_torch_render's bounds; drive_check with the drive switches;
+# K1 on one page past 2^33 B, CILRS_TPU_ALLOW_BIG_TABLE's layout.
+RENDER_SWITCH_ENV = {"CILRS_TPU_LAMPS": "1", "CILRS_TPU_NIGHT_LAMPS": "1",
+                     "CILRS_TPU_CROSSWALKS": "1"}
+DRIVE_SWITCH_ENV = {"CILRS_TPU_NO_REDHOLD": "1", "CILRS_TPU_NO_OFFROAD_ASSIST": "1"}
+RENDER_HASH_BOUND, RENDER_MAX_SHARE, RENDER_MAX_MEAN = 0.05, 0.005, 1e-3
+BIG_PAGE_ROWS = 2 ** 33 // ROW_BYTES + 5_000  # 8.85 GB, one page
+SWITCH_TIMEOUT_S = 300
 
 
 _START = time.time()
@@ -1243,6 +1306,38 @@ def _probe(module, name: str, timed, sync_call: int, profile_call: int, ticks: i
     return orig, rec
 
 
+def _fused_args(ckpt: str, hist_path: str, dev) -> list:
+    """cli.fused's arguments at full width (fused_full_size and its sharded
+    twin run the same call)."""
+    return ["--map", "town01", "--steps", str(FUSED_STEPS), "--envs", str(FUSED_ENVS),
+            "--vehicles", str(SIM_VEHICLES), "--walkers", str(SIM_WALKERS),
+            "--buffer", str(FUSED_BUFFER), "--collect-ticks", str(FUSED_TICKS),
+            "--train-per-chunk", str(FUSED_PER_CHUNK), "--ckpt-dir", ckpt,
+            "--history-json", hist_path, "--device", str(dev)]
+
+
+def _record_steps(rec: dict):
+    """Wrap train.fused's weighted step for one run: the first chunk's
+    losses (kept on the card, read after the run) go to ``rec["first_chunk"]``,
+    the step's mesh to ``rec["mesh"]``. Returns the original maker."""
+    orig = fused_mod.make_weighted_train_step
+
+    def make(cfg, mesh=None):
+        rec["mesh"] = mesh
+        step = orig(cfg, mesh)
+
+        def recorded(state, batch, seed):
+            parts = step(state, batch, seed)
+            if len(rec["first_chunk"]) < FUSED_PER_CHUNK:
+                rec["first_chunk"].append(torch.stack([parts["loss"], parts["plain_loss"]]).clone())
+            return parts
+
+        return recorded
+
+    fused_mod.make_weighted_train_step = make
+    return orig
+
+
 def phase_fused_full_size(dev, workdir: str) -> tuple[dict, dict, str]:
     """cli.fused at full width, FUSED_STEPS train steps (see the module
     docstring), with its chunk functions probed (``_probe``) and its first
@@ -1251,6 +1346,7 @@ def phase_fused_full_size(dev, workdir: str) -> tuple[dict, dict, str]:
     hist_path = os.path.join(workdir, "fused_history.json")
     d = int(np.prod(FRAME_SHAPE))
     sampled = {}
+    steps = {"first_chunk": []}
     orig_sample = fused_mod.sample_batch
 
     def sample_checked(buf, draws):
@@ -1263,6 +1359,7 @@ def phase_fused_full_size(dev, workdir: str) -> tuple[dict, dict, str]:
 
     probes = {}
     fused_mod.sample_batch = sample_checked
+    orig_step = _record_steps(steps)
     try:
         probes["collect"] = _probe(fused_mod, "collect_chunk", FUSED_TIMED["collect"],
                                    FUSED_SYNC_CALL, FUSED_PROFILE_CALL, FUSED_TICKS)
@@ -1272,18 +1369,14 @@ def phase_fused_full_size(dev, workdir: str) -> tuple[dict, dict, str]:
         torch.cuda.reset_peak_memory_stats(dev)
         gather_rows_paged.launches = 0
         t0 = time.time()
-        out = fused_cli.main(["--map", "town01", "--steps", str(FUSED_STEPS),
-                              "--envs", str(FUSED_ENVS), "--vehicles", str(SIM_VEHICLES),
-                              "--walkers", str(SIM_WALKERS), "--buffer", str(FUSED_BUFFER),
-                              "--collect-ticks", str(FUSED_TICKS),
-                              "--train-per-chunk", str(FUSED_PER_CHUNK), "--ckpt-dir", ckpt,
-                              "--history-json", hist_path, "--device", str(dev)])
+        out = fused_cli.main(_fused_args(ckpt, hist_path, dev))
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = gather_rows_paged.launches
         peak = torch.cuda.max_memory_allocated(dev)
     finally:
         fused_mod.sample_batch = orig_sample
+        fused_mod.make_weighted_train_step = orig_step
         for orig, _ in probes.values():
             setattr(fused_mod, orig.__name__, orig)
     col, trn = probes["collect"][1], probes["train"][1]
@@ -1296,12 +1389,14 @@ def phase_fused_full_size(dev, workdir: str) -> tuple[dict, dict, str]:
         x = normalize(torch.rand((8,) + FRAME_SHAPE, device=dev))
         ctl, ps = model(x, torch.full((8,), 0.3, device=dev), torch.arange(8, device=dev) % 4)
     # The kernel at the path's shapes, on the run's ring: a train batch (120
-    # rows) and the val snapshot (V = 4,080 rows, whole batches of at most
-    # 4,096).
+    # rows; 60, a rank's at world 2) and the val snapshot (V = 4,080 rows,
+    # whole batches of at most 4,096).
     ring, idx = sampled.pop("ring"), sampled.pop("idx")
+    first_batch_rows = idx.tolist()
     val_rows = (min(4096, FUSED_BUFFER // 4) // BATCH) * BATCH
     snap_rows = torch.arange(val_rows, device=dev, dtype=torch.int32) * 7 % FUSED_BUFFER
     gathers = {"batch": _gather_times((ring,), idx, FUSED_BUFFER),
+               "batch_a_rank_at_world_2": _gather_times((ring,), idx[:BATCH // 2], FUSED_BUFFER),
                "val_snapshot": _gather_times((ring,), snap_rows, FUSED_BUFFER)}
     del ring
     torch.cuda.empty_cache()
@@ -1341,8 +1436,13 @@ def phase_fused_full_size(dev, workdir: str) -> tuple[dict, dict, str]:
         raise AssertionError(f"a fused chunk waits for the card: {line['host_syncs']}")
     if not line["checkpoint_controls_finite"]:
         raise AssertionError("the saved checkpoint's forward is not finite")
+    reference = {"frames_collected": out["frames_collected"], "history": hist,
+                 "first_batch_rows": first_batch_rows,
+                 "first_chunk_losses": torch.stack(steps["first_chunk"]).tolist(),
+                 "collect_chunk_ms": col["wall_ms"], "train_chunk_ms": trn["wall_ms"],
+                 "peak_mem_bytes": peak, "wall_s": wall}
     return line, {"launches": launches, "max_abs_err": max(g["max_abs_err"] for g in gathers.values()),
-                  "fused_gathers": gathers}, ckpt
+                  "fused_gathers": gathers}, ckpt, reference
 
 
 def phase_residuals_cli(dev, workdir: str, ckpt: str) -> dict:
@@ -1429,6 +1529,440 @@ def phase_osm_collect(dev, workdir: str) -> dict:
     return line
 
 
+def _count_collectives(name: str, rec: dict, calls: int = 3):
+    """Wrap ``train.fused.<name>`` for one run: the mesh's collective calls
+    made by each of its first ``calls`` calls go to ``rec[name]``."""
+    orig = getattr(fused_mod, name)
+    rec[name] = []
+
+    def call(*args, **kwargs):
+        mesh = rec.get("mesh")
+        before = mesh.collectives if mesh is not None else 0
+        out = orig(*args, **kwargs)
+        if len(rec[name]) < calls and mesh is not None:
+            rec[name].append(mesh.collectives - before)
+        return out
+
+    setattr(fused_mod, name, call)
+
+
+def fused_rank_main(out_json: str, argv: list) -> int:
+    """The rank program of fused_sharded_full_size, which torchrun starts:
+    cli.fused's main with ``argv``, its chunk functions timed (``_probe``)
+    and their collectives counted, the first sampled batch's rows and the
+    first train chunk's losses recorded. Rank 0 writes ``out_json``."""
+    rec = {"first_chunk": []}
+    orig_sample = fused_mod.sample_batch
+
+    def sample(buf, draws):
+        out = orig_sample(buf, draws)
+        rec.setdefault("first_batch_rows", out["idx"])
+        return out
+
+    fused_mod.sample_batch = sample
+    _record_steps(rec)
+    col = _probe(fused_mod, "collect_chunk", FUSED_TIMED["collect"], 0, 0, FUSED_TICKS)[1]
+    trn = _probe(fused_mod, "train_chunk", FUSED_TIMED["train"], 0, 0, FUSED_PER_CHUNK)[1]
+    _count_collectives("collect_chunk", rec)
+    _count_collectives("train_chunk", rec)
+    build(["gather_rows"])
+    gather_rows_paged.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = fused_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    mesh = rec["mesh"]
+    result = {"rank": mesh.rank, "world": mesh.world, "backend": dist.get_backend(),
+              "device": torch.cuda.get_device_name(mesh.device), "wall_s": wall,
+              "loop_wall_s": out["wall_s"], "frames_collected": out["frames_collected"],
+              "train_steps": out["train_steps"], "history": out["history"],
+              "first_batch_rows": rec["first_batch_rows"].tolist(),
+              "first_chunk_losses": torch.stack(rec["first_chunk"]).tolist(),
+              "collect_chunk_ms": col["wall_ms"], "collect_chunk_issue_ms": col["issue_ms"],
+              "train_chunk_ms": trn["wall_ms"], "train_chunk_issue_ms": trn["issue_ms"],
+              "collectives_per_chunk": {"collect": rec["collect_chunk"],
+                                        "train": rec["train_chunk"]},
+              "collectives_total": mesh.collectives,
+              "gather_launches": gather_rows_paged.launches,
+              "peak_mem_bytes": torch.cuda.max_memory_allocated(mesh.device)}
+    if mesh.rank == 0:
+        with open(out_json, "w") as f:
+            json.dump(result, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def phase_fused_sharded_full_size(dev, workdir: str, ref: dict) -> dict:
+    """cli.fused under ``torchrun --standalone --nproc_per_node 1``: the
+    sharded path in a world of 1 over NCCL, at fused_full_size's call, held
+    to that run (``ref``)."""
+    ckpt = os.path.join(workdir, "sharded_ckpt")
+    hist_path = os.path.join(workdir, "sharded_history.json")
+    out_json = os.path.join(workdir, "sharded_rank0.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           os.path.abspath(__file__), "--fused-rank", out_json,
+           *_fused_args(ckpt, hist_path, "cuda")]
+    t0 = time.time()
+    # A session of its own, so that a timeout stops torchrun's worker too.
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        _, err = proc.communicate(timeout=SHARDED_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun exited {proc.returncode}: {err[-3000:]}")
+    with open(out_json) as f:
+        r = json.load(f)
+    with open(hist_path) as f:
+        written = json.load(f)["history"]
+    loss_err = max(_rel(a, b) for got, want in zip(r["first_chunk_losses"], ref["first_chunk_losses"])
+                   for a, b in zip(got, want))
+    hist_err, hist_bad = {}, []
+    for got, want in zip(r["history"], ref["history"]):
+        for k, v in want.items():
+            if k in ("step", "frames", "time_s"):
+                continue
+            err = abs(got[k] - v)
+            hist_err[k] = max(hist_err.get(k, 0.0), err / max(abs(v), 1e-12))
+            if err > SHARDED_HISTORY_TOL["atol"] + SHARDED_HISTORY_TOL["rtol"] * abs(v):
+                hist_bad.append(k)
+    model = load_policy(ckpt, device=dev)
+    with torch.inference_mode():
+        x = normalize(torch.rand((8,) + FRAME_SHAPE, device=dev))
+        ctl, ps = model(x, torch.full((8,), 0.3, device=dev), torch.arange(8, device=dev) % 4)
+    line = {"phase": "fused_sharded_full_size", "ok": True,
+            "launch": "torchrun --standalone --nproc_per_node 1 -m cilrs_tpu_torch.cli.fused",
+            "world": r["world"], "backend": r["backend"], "wall_s": wall,
+            "loop_wall_s": {"sharded": r["loop_wall_s"], "single": ref["wall_s"]},
+            "frames_collected": {"sharded": r["frames_collected"], "single": ref["frames_collected"]},
+            "first_batch_rows_equal": r["first_batch_rows"] == ref["first_batch_rows"],
+            "first_chunk_losses": {"sharded": r["first_chunk_losses"],
+                                   "single": ref["first_chunk_losses"], "max_rel_err": loss_err},
+            "history_max_rel_err": hist_err, "history_last": r["history"][-1] if r["history"] else None,
+            "collect_chunk_ms": {"sharded": r["collect_chunk_ms"], "single": ref["collect_chunk_ms"]},
+            "train_chunk_ms": {"sharded": r["train_chunk_ms"], "single": ref["train_chunk_ms"]},
+            "collect_chunk_issue_ms": r["collect_chunk_issue_ms"],
+            "train_chunk_issue_ms": r["train_chunk_issue_ms"],
+            "nccl_collectives_per_chunk": r["collectives_per_chunk"],
+            "nccl_collectives_total": r["collectives_total"],
+            "peak_mem_bytes": {"sharded": r["peak_mem_bytes"], "single": ref["peak_mem_bytes"]},
+            "gather_launches": r["gather_launches"], "expected_launches": r["train_steps"] + 1,
+            "history_json_written": written == r["history"],
+            "checkpoint_controls_finite": bool(torch.isfinite(ctl).all() and torch.isfinite(ps).all()),
+            "tolerance": {"first_chunk_rel": SHARDED_LOSS_RTOL, "history": SHARDED_HISTORY_TOL}}
+    emit(line)
+    bad = [k for k, ok in (
+        ("world", r["world"] == 1 and r["backend"] == "nccl"),
+        ("frames_collected", r["frames_collected"] == ref["frames_collected"]),
+        ("first_batch_rows", line["first_batch_rows_equal"]),
+        ("first_chunk_losses", loss_err <= SHARDED_LOSS_RTOL),
+        ("history", not hist_bad and len(r["history"]) == len(ref["history"]) > 0),
+        ("gather_launches", r["gather_launches"] == r["train_steps"] + 1),
+        ("history_json", line["history_json_written"]),
+        ("checkpoint", line["checkpoint_controls_finite"])) if not ok]
+    if bad:
+        raise AssertionError(f"the sharded world-1 run differs from the single path in {bad} "
+                             f"(history keys {sorted(set(hist_bad))})")
+    return line
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _params_sha(model: torch.nn.Module) -> str:
+    h = hashlib.sha256()
+    for v in model.state_dict().values():
+        h.update(v.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _flat_params(model: torch.nn.Module) -> torch.Tensor:
+    return torch.cat([p.detach().float().reshape(-1) for p in model.parameters()])
+
+
+def _step_batch(dev, cfg) -> dict:
+    """BATCH full-width frames and labels from a seed; the weights have mean
+    1 in each half, as each rank's sampler normalizes its own."""
+    g = torch.Generator().manual_seed(TWO_RANK_SEED)
+    b = BATCH
+    w = torch.rand(b, generator=g) * 2.0 + 0.2
+    w = torch.cat([w[:b // 2] / w[:b // 2].mean(), w[b // 2:] / w[b // 2:].mean()])
+    batch = {"images": torch.randint(0, 256, (b,) + FRAME_SHAPE, generator=g, dtype=torch.uint8),
+             "speed": torch.rand(b, generator=g) * 0.5,
+             "command": torch.randint(0, cfg.model.num_commands, (b,), generator=g, dtype=torch.int32),
+             "controls": torch.stack([torch.rand(b, generator=g) * 0.6 - 0.3,
+                                      torch.rand(b, generator=g) * 0.8,
+                                      torch.rand(b, generator=g) * 0.3], 1),
+             "weights": w}
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def _two_shards_in_one(cfg, batch: dict, seeds, dev):
+    """The weighted fused step of two ranks, computed in one process: each
+    60-frame shard's gradient, running statistics and losses from the same
+    weights, averaged, then one update. Returns (losses [2], state)."""
+    ref = create_train_state(cfg, 0, device=dev)
+    grads, runs, losses = [], [], []
+    for r, seed in enumerate(seeds):
+        st = create_train_state(cfg, 0, device=dev)
+        st.apply_gradients = lambda: None  # keep the shard's raw gradient
+        half = slice(r * BATCH // 2, (r + 1) * BATCH // 2)
+        parts = fused_mod.make_weighted_train_step(cfg)(st, {k: v[half] for k, v in batch.items()},
+                                                        seed)
+        grads.append([p.grad for p in st.model.parameters()])
+        runs.append(running_stats(st.model))
+        losses.append(torch.stack([parts["loss"], parts["plain_loss"]]))
+    with torch.no_grad():
+        for p, g0, g1 in zip(ref.model.parameters(), *grads):
+            p.grad = (g0 + g1) / 2
+        for b, s0, s1 in zip(running_stats(ref.model), *runs):
+            b.copy_((s0 + s1) / 2)
+    ref.apply_gradients()
+    return (losses[0] + losses[1]) / 2, ref
+
+
+def _two_rank_work(mesh) -> dict:
+    """What each of the two ranks runs (see parallel_two_ranks_one_card)."""
+    dev = mesh.device
+    res = {"rank": mesh.rank}
+    # (a) The sharded collect rollout, world 2 against world 1.
+    fleet = make_collect_fleet(make_town01(), TWO_RANK_ENVS, SIM_VEHICLES, SIM_WALKERS, None,
+                               TWO_RANK_SEED, TWO_RANK_TICKS, device=dev)
+    draws = draw_pedestrians(torch.Generator(device=dev).manual_seed(TWO_RANK_SEED),
+                             TWO_RANK_TICKS, TWO_RANK_ENVS, SIM_WALKERS, dev)
+    run = make_sharded_rollout(mesh, TWO_RANK_TICKS, fleet.wt, fleet.params, mode="collect",
+                               want_frames=True, pool_batched=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, outs2 = run(fleet.state, fleet.net, fleet.pool, draws)
+    torch.cuda.synchronize()
+    res["rollout_world2_s"] = time.time() - t0
+    res["rollout_collectives"] = mesh.collectives
+    if mesh.rank == 0:
+        t0 = time.time()
+        _, outs1 = fleet_rollout(fleet.state, TWO_RANK_TICKS, fleet.net, fleet.pool, fleet.wt,
+                                 fleet.params, draws, mode="collect")
+        torch.cuda.synchronize()
+        res["rollout_world1_s"] = time.time() - t0
+        a = {k: v.cpu().numpy() for k, v in outs2.items()}
+        b = {k: v.cpu().numpy() for k, v in outs1.items()}
+        fd = np.abs(a["frame"].astype(int) - b["frame"].astype(int))
+        res["rollout"] = {
+            "shapes_equal": all(a[k].shape == b[k].shape for k in b) and set(a) == set(b),
+            "max_abs_err": {k: float(np.abs(a[k].astype(np.float64) - b[k]).max()) for k in CHECK_TOL},
+            "int_mismatches": {k: int((a[k] != b[k]).sum()) for k in CHECK_EXACT},
+            "frames_u8": {"share_beyond_1": float((fd > 1).mean()), "mean_abs": float(fd.mean())}}
+    # (b) One weighted fused step, world 2 against the two shards in one
+    # process; one data-parallel loop step, world 2 against world 1.
+    cfg = load_train_config()
+    batch = _step_batch(dev, cfg)
+    seeds = [FUSED_STEP_SEED + fused_mod.RANK_SEED_STRIDE * r for r in range(mesh.world)]
+    st = create_train_state(cfg, 0, device=dev)
+    parts = fused_mod.make_weighted_train_step(cfg, mesh)(st, shard_batch(mesh, batch),
+                                                          seeds[mesh.rank])
+    res["fused"] = {"loss": [float(parts["loss"]), float(parts["plain_loss"])],
+                    "sha": _params_sha(st.model)}
+    if mesh.rank == 0:
+        ref_loss, ref = _two_shards_in_one(cfg, batch, seeds, dev)
+        res["fused"]["reference_loss"] = ref_loss.tolist()
+        res["fused"]["param_max_abs_err"] = float(
+            (_flat_params(st.model) - _flat_params(ref.model)).abs().max())
+    dp_batch = {k: v for k, v in batch.items() if k != "weights"}
+    st = create_train_state(cfg, 0, device=dev)
+    parts = make_train_step(cfg, mesh)(st, shard_batch(mesh, dp_batch), FUSED_STEP_SEED)
+    res["dp"] = {"loss": float(parts["loss"]), "sha": _params_sha(st.model),
+                 "dropout": cfg.model.dropout}
+    if mesh.rank == 0:
+        ref = create_train_state(cfg, 0, device=dev)
+        ref_parts = make_train_step(cfg)(ref, dp_batch, FUSED_STEP_SEED)
+        res["dp"]["reference_loss"] = float(ref_parts["loss"])
+        res["dp"]["param_max_abs_err"] = float(
+            (_flat_params(st.model) - _flat_params(ref.model)).abs().max())
+    res["collectives"] = mesh.collectives
+    return res
+
+
+def _two_rank_main(rank: int, port: int, out_dir: str):
+    """A rank of parallel_two_ranks_one_card: gloo on cuda:0."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank)
+    try:
+        res = _two_rank_work(make_mesh(2))
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel_two_ranks_one_card(dev, workdir: str) -> dict:
+    """Two ranks on the one card over gloo, world 2 against world 1 (see the
+    constants' note)."""
+    out_dir = os.path.join(workdir, "two_ranks")
+    os.makedirs(out_dir)
+    t0 = time.time()
+    torch_mp.spawn(_two_rank_main, args=(_free_port(), out_dir), nprocs=2, join=True)
+    wall = time.time() - t0
+    r0, r1 = (json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(2))
+    roll = r0["rollout"]
+    fl, dp = r0["fused"], r0["dp"]
+    line = {"phase": "parallel_two_ranks_one_card", "ok": True, "backend": "gloo", "world": 2,
+            "wall_s": wall, "rollout": {"envs": TWO_RANK_ENVS, "ticks": TWO_RANK_TICKS,
+                                        "world2_s": r0["rollout_world2_s"],
+                                        "world1_s": r0["rollout_world1_s"],
+                                        "collectives": r0["rollout_collectives"], **roll},
+            "fused_step": {**fl, "loss_rel_err": _rel(fl["loss"][0], fl["reference_loss"][0]),
+                           "ranks_identical": fl["sha"] == r1["fused"]["sha"]},
+            "dp_step": {**dp, "loss_rel_err": _rel(dp["loss"], dp["reference_loss"]),
+                        "ranks_identical": dp["sha"] == r1["dp"]["sha"]},
+            "batch": BATCH, "batch_per_rank": BATCH // 2,
+            "tolerance": {**CHECK_TOL, "frame_share_beyond_1": FRAME_MAX_SHARE,
+                          "frame_mean": FRAME_MAX_MEAN, "loss_rel": DP_LOSS_RTOL,
+                          "param_abs": DP_PARAM_ATOL}}
+    emit(line)
+    f = roll["frames_u8"]
+    bad = [k for k, e in roll["max_abs_err"].items() if not e <= CHECK_TOL[k]] + \
+        [k for k, n in roll["int_mismatches"].items() if n] + \
+        [k for k, ok in (
+            ("rollout_shapes", roll["shapes_equal"]),
+            ("frame", f["share_beyond_1"] <= FRAME_MAX_SHARE and f["mean_abs"] <= FRAME_MAX_MEAN),
+            ("fused_loss", line["fused_step"]["loss_rel_err"] <= DP_LOSS_RTOL),
+            ("fused_params", fl["param_max_abs_err"] <= DP_PARAM_ATOL),
+            ("fused_ranks", line["fused_step"]["ranks_identical"]),
+            ("dp_loss", line["dp_step"]["loss_rel_err"] <= DP_LOSS_RTOL),
+            ("dp_params", dp["param_max_abs_err"] <= DP_PARAM_ATOL),
+            ("dp_ranks", line["dp_step"]["ranks_identical"])) if not ok]
+    if bad:
+        raise AssertionError(f"world 2 on one card differs from world 1 in {bad}")
+    return line
+
+
+def phase_switches_render(dev) -> dict:
+    """The three renderer switches (set before this process imported the
+    renderer): a night and a clear frame on the card against the CPU, and the
+    pixels the switches add on both."""
+    if not (raster_mod._LAMPS and raster_mod._NIGHT_LAMPS and raster_mod._CROSSWALKS):
+        raise AssertionError("the renderer switches are not set in this process")
+    net = make_town01()
+    h = net.host
+    E, weathers = 3, (3, 0, 3)
+    world = make_world(E, 5, 2)
+    pos, yaw_all = np.zeros((E, 5, 2), np.float32), np.zeros((E, 5), np.float32)
+    ped = np.zeros((E, 2, 2), np.float32)
+    for e in range(E):
+        li = (7 * e + 3) % len(h.light_xy)
+        yaw = float(h.light_yaw[li])
+        fwd = np.array([np.cos(yaw), np.sin(yaw)])
+        left = np.array([-fwd[1], fwd[0]])
+        xy = h.light_xy[li] - 9.0 * fwd
+        pos[e] = [xy, xy + fwd * 12 + left * 3.4, xy + fwd * 16 - left * 3.4, xy + fwd * 30,
+                  xy + fwd * 45 + left * 3.5]
+        yaw_all[e] = [yaw, yaw, yaw + 0.1, yaw, yaw + 3.14]
+        ped[e] = [xy + fwd * 9 + left * 5, xy - fwd * 5 - left * 5]
+    ctl = np.tile(np.array([[0, 0, 0], [0, 0, 0.8], [0, 0, 0.3], [0, 0, 0.9], [0, 0, 0.6]],
+                           np.float32), (E, 1, 1))
+    world = world.replace(
+        veh_pos=torch.from_numpy(pos), veh_yaw=torch.from_numpy(yaw_all),
+        veh_alive=torch.ones(E, 5, dtype=torch.bool), veh_control=torch.from_numpy(ctl),
+        veh_reverse=torch.tensor([[False, False, False, True, False]] * E),
+        ped_pos=torch.from_numpy(ped), ped_alive=torch.ones(E, 2, dtype=torch.bool),
+        weather_idx=torch.tensor(weathers), time_s=torch.tensor([4.0, 13.0, 22.0]))
+    frames, walls = {}, {}
+    for side, d in (("cpu", "cpu"), ("card", dev)):
+        n, w = net.to(d), dataclasses.replace(world, **{
+            f.name: getattr(world, f.name).to(d) for f in dataclasses.fields(world)})
+        t0 = time.time()
+        frames[side] = raster_mod.render_frame(n, w, light_states(n, w.time_s)).cpu().numpy()
+        flags = {k: getattr(raster_mod, k) for k in ("_LAMPS", "_NIGHT_LAMPS", "_CROSSWALKS")}
+        walls[side] = time.time() - t0
+        for k in flags:
+            setattr(raster_mod, k, False)
+        try:
+            frames[side + "_default"] = raster_mod.render_frame(
+                n, w, light_states(n, w.time_s)).cpu().numpy()
+        finally:
+            for k, v in flags.items():
+                setattr(raster_mod, k, v)
+    diff = np.abs(frames["card"] - frames["cpu"])
+    added = {s: np.abs(frames[s] - frames[s + "_default"]).max(-1) > RENDER_HASH_BOUND
+             for s in ("cpu", "card")}
+    line = {"phase": "switches_render", "ok": True, "map": "town01", "envs": E,
+            "weathers": list(weathers), "switches": sorted(RENDER_SWITCH_ENV),
+            "share_beyond_0.05": float((diff > RENDER_HASH_BOUND).mean()),
+            "mean_abs": float(diff.mean()),
+            "added_pixels": {s: int(a.sum()) for s, a in added.items()},
+            "added_pixels_differing": int((added["cpu"] != added["card"]).sum()),
+            "wall_s": walls}
+    emit(line)
+    if not (line["share_beyond_0.05"] <= RENDER_MAX_SHARE and line["mean_abs"] <= RENDER_MAX_MEAN
+            and line["added_pixels"]["cpu"] > 100
+            and line["added_pixels_differing"] <= 0.01 * line["added_pixels"]["cpu"]):
+        raise AssertionError(f"the switched frame differs between card and CPU: {line}")
+    return line
+
+
+def _phase_in_subprocess(name: str, env: dict) -> dict:
+    """``chip_smoke.py --phase name`` in a fresh process with ``env`` added:
+    its phase line, or its failure."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--phase", name],
+                         env={**os.environ, **env}, capture_output=True, text=True,
+                         timeout=SWITCH_TIMEOUT_S)
+    lines = [json.loads(ln) for ln in res.stdout.splitlines() if ln.startswith("{")]
+    got = [ln for ln in lines if ln.get("phase") == name]
+    if res.returncode != 0 or not got or not got[-1].get("ok"):
+        raise AssertionError(f"{name} with {sorted(env)} failed (exit {res.returncode}): "
+                             f"{res.stdout[-1500:]} {res.stderr[-1500:]}")
+    return got[-1]
+
+
+def phase_switches_check(dev) -> dict:
+    """The opt-in switches on the card: the renderer's and the drive ones in
+    subprocesses (the renderer reads its switches at import), then K1
+    bit-exact on one page past 2^33 B, the layout CILRS_TPU_ALLOW_BIG_TABLE
+    gives a table."""
+    t0 = time.time()
+    render = _phase_in_subprocess("switches_render", RENDER_SWITCH_ENV)
+    drive = _phase_in_subprocess("drive_check", DRIVE_SWITCH_ENV)
+    pages, page_rows, _ = paged_layout(BIG_PAGE_ROWS, ROW_BYTES, 0, 2 ** 40)
+    g = torch.Generator(device=dev).manual_seed(33)
+    big = (torch.randint(0, 256, (BIG_PAGE_ROWS, ROW_BYTES), generator=g, device=dev,
+                         dtype=torch.uint8),)
+    first_past = -(-2 ** 33 // ROW_BYTES)  # the first row that starts past 2^33 B
+    idx = torch.cat([torch.randint(first_past - 100, BIG_PAGE_ROWS, (400,), generator=g,
+                                   device=dev, dtype=torch.int32),
+                     torch.tensor([first_past, BIG_PAGE_ROWS - 1, 0], dtype=torch.int32,
+                                  device=dev)])
+    gather_rows_paged.launches = 0
+    err = kernel_vs_plain(big, idx, page_rows)
+    launches = gather_rows_paged.launches
+    big_bytes = big[0].numel()
+    del big
+    torch.cuda.empty_cache()
+    line = {"phase": "switches_check", "ok": True, "wall_s": time.time() - t0,
+            "switches_render": {k: v for k, v in render.items() if k not in ("phase", "ok")},
+            "drive_check_switches": sorted(DRIVE_SWITCH_ENV),
+            "drive_check": {k: drive[k] for k in ("max_abs_err", "int_mismatches", "frames_u8",
+                                                  "statuses_seen", "ego_path_m", "cilrs_one_tick")},
+            "big_page": {"pages": pages, "page_rows": page_rows, "page_bytes": big_bytes,
+                         "rows_past_2^33_bytes": BIG_PAGE_ROWS - first_past,
+                         "max_abs_err": err, "launches": launches}}
+    emit(line)
+    if pages != 1 or big_bytes <= 2 ** 33 or err != 0.0:
+        raise AssertionError(f"the big page: {line['big_page']}")
+    return line
+
+
 def load_sessions_labels(session: str):
     """A resident session's labels (measurements.csv) as a DriveDataset."""
     import csv
@@ -1444,11 +1978,26 @@ def load_sessions_labels(session: str):
                                            for k in ("steer", "throttle", "brake")], axis=1))
 
 
-def main() -> int:
+# Phases that ``--phase NAME`` runs alone (switches_check runs them in a
+# process of their own, with its switches set).
+ALONE = {"switches_render": phase_switches_render, "drive_check": phase_drive_check}
+
+
+def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU", file=sys.stderr)
         return 2
+    if argv[:1] == ["--fused-rank"]:
+        return fused_rank_main(argv[1], argv[2:])
     dev = torch.device("cuda")
+    if argv[:1] == ["--phase"]:
+        try:
+            ALONE[argv[1]](dev)
+        except Exception as e:
+            traceback.print_exc()
+            emit({"phase": argv[1], "ok": False, "error": f"{type(e).__name__}: {e}"})
+            return 1
+        return 0
     emit({"phase": "setup", "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "python": sys.version.split()[0]})
     phase = "build_and_kernel_check"
@@ -1489,20 +2038,28 @@ def main() -> int:
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory(prefix="cilrs_smoke_fused_") as workdir:
             phase = "fused_full_size"
-            _, fused_kernel, fused_ckpt = phase_fused_full_size(dev, workdir)
+            _, fused_kernel, fused_ckpt, fused_ref = phase_fused_full_size(dev, workdir)
             phase = "residuals_cli"
             phase_residuals_cli(dev, workdir, fused_ckpt)
             phase = "prepare_check"
             phase_prepare_check(dev, workdir)
             phase = "osm_collect"
             phase_osm_collect(dev, workdir)
+            torch.cuda.empty_cache()
+            phase = "fused_sharded_full_size"
+            sharded_line = phase_fused_sharded_full_size(dev, workdir, fused_ref)
+            phase = "parallel_two_ranks_one_card"
+            phase_parallel_two_ranks_one_card(dev, workdir)
+        phase = "switches_check"
+        phase_switches_check(dev)
         phase = "report"
         kernel["launches_by_path"] = {"eval_full_size": kernel["launches"],
                                       "train_full_size": train_kernel.pop("launches"),
                                       "collect_full_size": collect_line["gather_launches"],
                                       "drive_full_size": drive_line["gather_launches"],
                                       "pipeline_cli": pipeline_line["gather_launches"],
-                                      "fused_full_size": fused_kernel.pop("launches")}
+                                      "fused_full_size": fused_kernel.pop("launches"),
+                                      "fused_sharded_full_size": sharded_line["gather_launches"]}
         kernel["launches"] = sum(kernel["launches_by_path"].values())
         kernel["max_abs_err"] = max(kernel["max_abs_err"], train_kernel.pop("max_abs_err"),
                                     fused_kernel.pop("max_abs_err"))
@@ -1520,4 +2077,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

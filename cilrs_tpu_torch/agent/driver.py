@@ -27,13 +27,15 @@ normalized frame, speed and command, and its controls go through
 assist. Either mode runs the pinned-destination protocol with
 ``loop_routes=False``: one attempt, and once the destination is reached the
 car parks and the metrics freeze. The JAX package's A/B switches
-``CILRS_TPU_NO_REDHOLD`` and ``CILRS_TPU_NO_OFFROAD_ASSIST`` are not ported: the
-port runs their defaults (the red hold and the assist on in drive mode).
+``CILRS_TPU_NO_REDHOLD=1`` and ``CILRS_TPU_NO_OFFROAD_ASSIST=1`` turn the red
+hold and the off-road assist of drive mode off; they are read at every tick,
+as the JAX package reads them when it traces the tick.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -144,8 +146,10 @@ def env_observe(state: DriverState, net: RoadNetwork, pool: RoutePool,
     obs_dist = perception.get_obstacle_distance(
         world, horizons=perception.PREDICT_HORIZONS if drive else (0.0,))
     tl_state, tl_idx = perception.check_traffic_light(net, lights, ego_pos, ego_yaw)
-    red_ahead = perception.red_light_ahead(net, lights, ego_pos, ego_yaw) if drive \
-        else torch.zeros_like(tl_state, dtype=torch.bool)
+    if drive and os.environ.get("CILRS_TPU_NO_REDHOLD") != "1":
+        red_ahead = perception.red_light_ahead(net, lights, ego_pos, ego_yaw)
+    else:
+        red_ahead = torch.zeros_like(tl_state, dtype=torch.bool)
     on_road = ~perception.ego_off_road(net, ego_pos)
 
     frame = render_frame(net, world, lights, cam)
@@ -212,9 +216,10 @@ def env_act(
         # Off-road recovery steer: while off the drivable surface, steer
         # hint-dominant back toward the route at reduced throttle instead of
         # riding the model's drift into the 10-frame streak teleport.
-        assist = torch.stack([torch.clamp(0.7 * hint + 0.3 * control[:, 0], -1.0, 1.0),
-                              torch.clamp(control[:, 1], max=0.4), control[:, 2]], dim=-1)
-        control = torch.where(on_road[:, None], control, assist)
+        if os.environ.get("CILRS_TPU_NO_OFFROAD_ASSIST") != "1":
+            assist = torch.stack([torch.clamp(0.7 * hint + 0.3 * control[:, 0], -1.0, 1.0),
+                                  torch.clamp(control[:, 1], max=0.4), control[:, 2]], dim=-1)
+            control = torch.where(on_road[:, None], control, assist)
         ev_red_light_stop = events["red_light_stop"]
         ev_obstacle_brake = events["obstacle_brake"]
         ev_teleport_request = events["teleport_request"]

@@ -2,10 +2,14 @@
 
     python -m cilrs_tpu_torch.cli.train --data data/session_001 [data/session_002 ...] \
         --ckpt-dir runs/cilrs --epochs 20 [--resume] [--device cpu]
+    torchrun --nproc_per_node N -m cilrs_tpu_torch.cli.train --data ... --ckpt-dir runs/cilrs
 
 Loads the sessions, ships the train split and a val subset to the card once,
 and trains there (``train.loop.train``); the best slot,
 ``<ckpt-dir>/checkpoint_best.pth``, is what ``cli.report --checkpoint`` reads.
+Under torchrun with more than one rank, each rank trains on its block of
+every host batch (``train.loop``'s data-parallel branch) and rank 0 writes
+the checkpoints; a world of 1 keeps the card-resident path.
 """
 
 from __future__ import annotations
@@ -14,9 +18,13 @@ import argparse
 import dataclasses
 import time
 
+import torch
+
 from cilrs_tpu_torch.cli.common import require_cuda
 from cilrs_tpu_torch.config import load_train_config
 from cilrs_tpu_torch.data.dataset import load_sessions
+from cilrs_tpu_torch.parallel.distributed import initialize_distributed, is_coordinator
+from cilrs_tpu_torch.parallel.mesh import make_mesh
 from cilrs_tpu_torch.train.loop import train
 
 
@@ -37,6 +45,11 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     dev = require_cuda(args.device)
+    # The process group first: it sets this rank's GPU before any CUDA work.
+    mesh = make_mesh(device=dev.type) if initialize_distributed(device=dev) else None
+    if mesh is not None:
+        dev = mesh.device
+    say = print if is_coordinator() else (lambda *a, **k: None)
 
     cfg = load_train_config(args.config)
     tcfg = cfg.training
@@ -48,17 +61,19 @@ def main(argv=None):
         tcfg = dataclasses.replace(tcfg, hard_frame_boost=args.hard_boost)
     cfg = dataclasses.replace(cfg, training=tcfg)
 
-    print(f"Loading sessions: {args.data}")
+    say(f"Loading sessions: {args.data}")
     t0 = time.time()
     ds = load_sessions(args.data)
-    print(f"  {len(ds)} frames (loaded in {time.time()-t0:.0f}s)")
+    say(f"  {len(ds)} frames (loaded in {time.time()-t0:.0f}s)")
     t1 = time.time()
     out = train(ds, cfg, ckpt_dir=args.ckpt_dir, resume=args.resume, device=dev,
-                pretrained_backbone=args.pretrained_backbone)
-    print(f"\nBest val loss: {out['best_val_loss']:.4f} "
-          f"(train wall {time.time()-t1:.0f}s)")
+                pretrained_backbone=args.pretrained_backbone, mesh=mesh)
+    say(f"\nBest val loss: {out['best_val_loss']:.4f} "
+        f"(train wall {time.time()-t1:.0f}s)")
     return out
 
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

@@ -63,12 +63,17 @@ class CollectFleet:
     chunk_steps: int
     generator: torch.Generator
     state: DriverState
+    # A rank's block of a sharded fleet (``parallel.fleet.shard_collect_fleet``):
+    # the draws are the whole fleet's [T, draw_envs, P], of which the rank
+    # keeps its envs, so an env's draws do not depend on the world size.
+    draw_envs: int | None = None
+    env_block: slice = slice(None)
 
     def chunk(self) -> dict:
         """``chunk_steps`` ticks; returns the outputs [E, T, ...] on the device."""
         w = self.state.world
-        draws = draw_pedestrians(self.generator, self.chunk_steps, w.num_envs,
-                                 w.num_pedestrians, w.veh_pos.device)
+        draws = draw_pedestrians(self.generator, self.chunk_steps, self.draw_envs or w.num_envs,
+                                 w.num_pedestrians, w.veh_pos.device)[:, self.env_block]
         self.state, outs = fleet_rollout(
             self.state, self.chunk_steps, self.net, self.pool, self.wt, self.params, draws,
             mode="collect", cam=self.cam)

@@ -159,7 +159,14 @@ def collect_resident(
     fleet seeded ``seed + 7919 * s``, its clock back at 0. With
     ``output_dir``, writes measurements.csv (image_filename
     ``resident#<row>``), aux.csv and summary.txt: everything but the frames.
+
+    The JAX package's switches, read at each call: ``CILRS_TPU_ALLOW_BIG_TABLE=1``
+    builds one page whatever its size (``max_page_bytes = 2**40``; the
+    row-gather kernel's offsets are 64-bit), and ``CILRS_TPU_CONTINUOUS_COLLECT=1``
+    keeps one session across the pages (the fleet and its clock run on).
     """
+    if os.environ.get("CILRS_TPU_ALLOW_BIG_TABLE") == "1":
+        max_page_bytes = 2 ** 40
     dev = require_cuda(device)
     H, W = cam.height, cam.width
     D = H * W * 3
@@ -206,6 +213,7 @@ def collect_resident(
     def logical(p: int) -> int:
         return page_rows if p < num_pages - 1 else N - (num_pages - 1) * page_rows
 
+    fresh_sessions = os.environ.get("CILRS_TPU_CONTINUOUS_COLLECT") != "1"
     fleet = fleet_for(seed)
     page, done_pages = new_page(), []
     cursor = chunks = session_chunks = filled = 0
@@ -231,12 +239,13 @@ def collect_resident(
                       f"{cursor - page_rows} overshoot frames dropped", flush=True)
             done_pages.append(page)
             page, cursor = new_page(), 0
-            s = len(done_pages)
-            fleet = fleet_for(seed + SESSION_SEED_STRIDE * s)
-            session_chunks = 0
-            if verbose:
-                print(f"  session {s + 1}/{num_pages}: fresh world "
-                      f"(seed {seed + SESSION_SEED_STRIDE * s})", flush=True)
+            if fresh_sessions:
+                s = len(done_pages)
+                fleet = fleet_for(seed + SESSION_SEED_STRIDE * s)
+                session_chunks = 0
+                if verbose:
+                    print(f"  session {s + 1}/{num_pages}: fresh world "
+                          f"(seed {seed + SESSION_SEED_STRIDE * s})", flush=True)
         filled = len(done_pages) * page_rows + min(cursor, logical(len(done_pages)))
         if verbose and chunks % 20 == 0:
             print(f"  resident-collect {filled}/{N} frames "

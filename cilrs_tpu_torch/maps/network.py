@@ -8,14 +8,15 @@ package so that both build identical arrays from one graph; ``RoadNetwork``
 holds them as tensors on one device, and ``host`` keeps the numpy arrays that
 host code (routing, spawning) reads.
 
-The JAX package's ``CILRS_TPU_STAGGER_LIGHTS`` switch (junction-local light
-offsets, off by default) is not ported: every light runs on the town-global
-clock, its default.
+By default every light runs on one town-global clock. The JAX package's
+switch ``CILRS_TPU_STAGGER_LIGHTS=1`` (unless ``CILRS_TPU_GLOBAL_LIGHTS=1``)
+gives each junction its own phase offset, read when a network is built.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -414,16 +415,23 @@ def build_network(
     # red-wave resonance (see light_states).
     lxy, lyaw, lgroup, lwp, loff = [], [], [], [], []
     if with_lights:
-        # One town-global clock (the JAX package's default): every offset 0.
+        # Default: one town-global clock, every offset 0 (the staggered
+        # offsets are opt-in, as in the JAX package).
+        stagger = (os.environ.get("CILRS_TPU_STAGGER_LIGHTS") == "1"
+                   and os.environ.get("CILRS_TPU_GLOBAL_LIGHTS") != "1")
+        n_junctions = 0
         for nidx in range(len(nodes)):
             if degree[nidx] < 3:
                 continue
+            j_offset = ((n_junctions * 0.618033988749895) % 1.0 * LIGHT_CYCLE_S
+                        if stagger else 0.0)
+            n_junctions += 1
             for (fi, li, hi, ei, ki) in incoming.get(nidx, []):
                 lxy.append(wp_xy[li])
                 lyaw.append(np.arctan2(hi[1], hi[0]))
                 lgroup.append(0 if abs(hi[0]) >= abs(hi[1]) else 1)
                 lwp.append(li)
-                loff.append(0.0)
+                loff.append(j_offset)
     L = len(lxy)
     light_xy = np.asarray(lxy, np.float32).reshape(L, 2)
     light_yaw = np.asarray(lyaw, np.float32)

@@ -21,19 +21,58 @@ Numerics follow the JAX model, not the reference:
    bf16-rounded weights in float32;
  - the speed skip adds ``speed * speed_skip_w`` in float32, and the speed
    encoder has no dropout when it is on.
+
+Inside ``global_batch(model, gb)`` the batch is a block of a larger batch
+held by several processes, which JAX trains as one global-batch ``jit``:
+BatchNorm normalizes by the global batch's statistics and dropout applies
+the block's rows of the masks drawn for the global batch, so neither depends
+on how the batch is split.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cilrs_tpu_torch.models.resnet import ResNet34
+from cilrs_tpu_torch.models.resnet import FlaxBatchNorm2d, GlobalBatch, ResNet34
 
 SPEED_DIM = 128
 BRANCH_HIDDEN = 256
 NUM_OUTPUTS = 3  # steer, throttle, brake
+
+
+class BlockDropout(nn.Dropout):
+    """Dropout that, with ``global_batch`` set, draws the mask of the global
+    batch (``F.dropout`` of ones, the same draws as ``F.dropout`` of the
+    whole batch in one process) and applies the input's rows of it."""
+
+    global_batch: GlobalBatch | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gb = self.global_batch
+        if gb is None or not self.training:
+            return super().forward(x)
+        mask = F.dropout(x.new_ones((gb.size,) + x.shape[1:]), self.p, True)
+        return x * mask[gb.rows]
+
+
+@contextlib.contextmanager
+def global_batch(model: nn.Module, gb: GlobalBatch | None):
+    """While the block runs, ``model``'s train-mode BatchNorm and dropout
+    take its input as the rows ``gb.rows`` of a global batch (see the module
+    docstring). ``gb=None`` changes nothing."""
+    mods = [m for m in model.modules()
+            if gb is not None and isinstance(m, (FlaxBatchNorm2d, BlockDropout))]
+    for m in mods:
+        m.global_batch = gb
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.global_batch = None
 
 
 class CILRS(nn.Module):
@@ -48,16 +87,16 @@ class CILRS(nn.Module):
         self.visual_encoder = ResNet34(stage_sizes, stage_features)
         self.speed_encoder = nn.Sequential(
             nn.Linear(1, SPEED_DIM), nn.ReLU(),
-            nn.Identity() if speed_skip else nn.Dropout(dropout),
+            nn.Identity() if speed_skip else BlockDropout(dropout),
             nn.Linear(SPEED_DIM, SPEED_DIM), nn.ReLU())
         self.control_branches = nn.ModuleList([
             nn.Sequential(
-                nn.Linear(visual_dim + SPEED_DIM, BRANCH_HIDDEN), nn.ReLU(), nn.Dropout(dropout),
-                nn.Linear(BRANCH_HIDDEN, BRANCH_HIDDEN), nn.ReLU(), nn.Dropout(dropout),
+                nn.Linear(visual_dim + SPEED_DIM, BRANCH_HIDDEN), nn.ReLU(), BlockDropout(dropout),
+                nn.Linear(BRANCH_HIDDEN, BRANCH_HIDDEN), nn.ReLU(), BlockDropout(dropout),
                 nn.Linear(BRANCH_HIDDEN, NUM_OUTPUTS))
             for _ in range(num_commands)])
         self.speed_predictor = nn.Sequential(
-            nn.Linear(visual_dim, BRANCH_HIDDEN), nn.ReLU(), nn.Dropout(dropout),
+            nn.Linear(visual_dim, BRANCH_HIDDEN), nn.ReLU(), BlockDropout(dropout),
             nn.Linear(BRANCH_HIDDEN, BRANCH_HIDDEN), nn.ReLU(),
             nn.Linear(BRANCH_HIDDEN, 1))
         if speed_skip:

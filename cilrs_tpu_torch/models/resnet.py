@@ -15,11 +15,24 @@ torch's padding=0 (at 88x200 the maps go 44x100 -> 22x50 -> 11x25 -> 6x13 ->
 
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class GlobalBatch:
+    """The train-mode input is the rows ``rows`` of a batch of ``size`` rows
+    that other processes hold the rest of; ``sum`` sums a tensor over those
+    processes, differentiably. (``models.cilrs.global_batch`` hands it to
+    the modules that read it.)"""
+
+    size: int
+    rows: slice
+    sum: Callable[[torch.Tensor], torch.Tensor]
 
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
@@ -30,13 +43,22 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     Flax towards v. Torch's update goes to a copy, rv' = (1-m) rv + m v
     n/(n-1), from which the Flax value (1-m) rv + m v is rv' (n-1)/n +
     rv (1-m)/n. (The copy is what autograd saves, so the buffer itself may
-    change in place.) Eval mode is BatchNorm2d's."""
+    change in place.) Eval mode is BatchNorm2d's.
+
+    With ``global_batch`` set, train mode normalizes by the statistics of
+    the global batch, as a global-batch ``jit`` does in JAX: the per-channel
+    sums of x and x^2 go through ``global_batch.sum`` in one call, and the
+    variance is Flax's, E[x^2] - E[x]^2."""
+
+    global_batch: GlobalBatch | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
         self._check_input_dim(x)
         self.num_batches_tracked.add_(1)
+        if self.global_batch is not None:
+            return self._forward_global(x)
         unbiased = self.running_var.clone()
         y = F.batch_norm(x, self.running_mean, unbiased, self.weight, self.bias, True,
                          self.momentum, self.eps)
@@ -44,6 +66,21 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         with torch.no_grad():
             self.running_var.mul_((1 - self.momentum) / n).add_(unbiased, alpha=(n - 1) / n)
         return y
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        gb = self.global_batch
+        c = x.shape[1]
+        xf = x.float()
+        sums = gb.sum(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))]))
+        n = gb.size * x.shape[2] * x.shape[3]
+        mean = sums[:c] / n
+        var = sums[c:] / n - mean * mean
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1 - self.momentum).add_(var, alpha=self.momentum)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        shift = self.bias - mean * scale
+        return (xf * scale[:, None, None] + shift[:, None, None]).to(x.dtype)
 
 
 def _bn(c: int) -> nn.BatchNorm2d:

@@ -153,7 +153,12 @@ def apply_augment(images: torch.Tensor, d: dict) -> torch.Tensor:
     return x.clamp(0.0, 1.0)
 
 
-def augment_batch(gen: torch.Generator, images: torch.Tensor) -> torch.Tensor:
-    """Draw on ``gen`` and augment [B, H, W, 3] images in [0, 1]."""
+def augment_batch(gen: torch.Generator, images: torch.Tensor, batch: int | None = None,
+                  rows: slice = slice(None)) -> torch.Tensor:
+    """Draw on ``gen`` and augment [B, H, W, 3] images in [0, 1]. With
+    ``batch``, the draws are those of a batch of that many images, of which
+    ``images`` are ``rows``: a rank's block of a global batch gets the draws
+    that one device gets for those rows."""
     b, h, w, _ = images.shape
-    return apply_augment(images, draw_augment(gen, b, h, w))
+    d = draw_augment(gen, batch or b, h, w)
+    return apply_augment(images, {k: v[rows] for k, v in d.items()})

@@ -23,13 +23,18 @@ Numerics follow the JAX function where they decide what a pixel shows:
  - the hashes of the ground grain and the rain streaks compute sin's
    argument as XLA's fused multiply-add does (``weather.hash_sin``).
 
-The JAX package's opt-in switches ``CILRS_TPU_LAMPS``,
-``CILRS_TPU_NIGHT_LAMPS`` (taillight glow) and ``CILRS_TPU_CROSSWALKS``
-(junction paint) are off by default and are not ported: the port renders
-their default, where every glow term is zero and there is no junction paint.
+The JAX package's opt-in switches, read when the module is imported and off
+by default (the measured-best render): ``CILRS_TPU_LAMPS=1`` lights a braking
+NPC's taillights (brake > 0.45; ``CILRS_TPU_NO_LAMPS=1`` vetoes it),
+``CILRS_TPU_NIGHT_LAMPS=1`` dim constant taillights at night
+(``CILRS_TPU_NO_NIGHT_LAMPS=1`` vetoes it), ``CILRS_TPU_CROSSWALKS=1`` stop
+bars and zebra crossings at the K nearest lights, an [pixels x K] pass in
+bf16 like the ground classification.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -78,6 +83,13 @@ _GRASS = (0.22, 0.34, 0.16)
 _SIDEWALK = (0.52, 0.50, 0.48)
 _ASPHALT = (0.23, 0.23, 0.24)
 _MARKING = (0.85, 0.85, 0.80)
+_TAILLIGHT = (0.95, 0.07, 0.05)
+
+_LAMPS = (os.environ.get("CILRS_TPU_LAMPS", "") == "1"
+          and os.environ.get("CILRS_TPU_NO_LAMPS", "") != "1")
+_NIGHT_LAMPS = (os.environ.get("CILRS_TPU_NIGHT_LAMPS", "") == "1"
+                and os.environ.get("CILRS_TPU_NO_NIGHT_LAMPS", "") != "1")
+_CROSSWALKS = os.environ.get("CILRS_TPU_CROSSWALKS", "") == "1"
 _POLE = (0.25, 0.26, 0.28)
 _PED_COLOR = (0.55, 0.35, 0.25)
 _LIGHT_COLORS = (
@@ -164,6 +176,29 @@ def _ground_masks(net: RoadNetwork, ego_pos: torch.Tensor, gxy: torch.Tensor):
     return road, marking, sidewalk
 
 
+def _junction_markings(net: RoadNetwork, ego_pos: torch.Tensor, gxy: torch.Tensor) -> torch.Tensor:
+    """Stop bars and zebra crossings at the K lights nearest each ego (the
+    ``CILRS_TPU_CROSSWALKS`` switch): ego_pos [E, 2], ground points gxy
+    [E, N, 2]. One [N, K] pass in bf16, as the JAX function. Returns a [E, N]
+    paint mask in {0, 1}."""
+    L = net.num_lights
+    if L == 0:
+        return torch.zeros(gxy.shape[:-1], device=gxy.device)
+    near = nearest_k(torch.sum((net.light_xy - ego_pos[:, None]) ** 2, dim=-1), min(NUM_NEAR_LIGHTS, L))
+    lxy, lyaw = net.light_xy[near], net.light_yaw[near]  # [E, K, 2], [E, K]
+    bf = torch.bfloat16
+    fx, fy = torch.cos(lyaw)[:, None].to(bf), torch.sin(lyaw)[:, None].to(bf)  # [E, 1, K]
+    rel_x = (gxy[..., 0:1] - lxy[:, None, :, 0]).to(bf)  # [E, N, K]
+    rel_y = (gxy[..., 1:2] - lxy[:, None, :, 1]).to(bf)
+    lon = rel_x * fx + rel_y * fy
+    lat = rel_y * fx - rel_x * fy
+    in_lane = lat.abs() <= _bf16(2.2)
+    bar = (lon >= _bf16(-0.6)) & (lon <= 0.0) & in_lane  # the stop bar before the line
+    zebra = torch.remainder(lat, _bf16(1.2)) < _bf16(0.6)  # stripes along the lane
+    walk = (lon >= _bf16(0.6)) & (lon <= _bf16(2.2)) & (lat.abs() <= _bf16(2.6)) & zebra
+    return (bar | walk).any(dim=-1).to(torch.float32)
+
+
 def _motion_stretch(pxy: torch.Tensor, yaw: torch.Tensor, speed_ms: torch.Tensor) -> torch.Tensor:
     """Compress world points [E, N, 2] along each ego's travel direction by
     (1 + k*v) before hashing, so the value-noise cells render stretched along
@@ -181,11 +216,13 @@ def _hash2(p: torch.Tensor, cell: float) -> torch.Tensor:
     return v - torch.floor(v)
 
 
-def _ray_obb(oz: float, d, center_xy, yaw, half_l, half_w, height):
+def _ray_obb(oz: float, d, center_xy, yaw, half_l, half_w, height, lamps: bool = False):
     """Rays from (0, 0, oz) along d [E, N, 3] against vertical oriented boxes,
     centers [E, B, 2] relative to the camera, params [E, B].
 
-    Returns (t_hit [E, N, B], shade [E, N, B]); t = INF on a miss.
+    Returns (t_hit [E, N, B], shade [E, N, B]); t = INF on a miss. With
+    ``lamps``, also the taillight mask [E, N, B] in {0, 1}: two bands at the
+    outer corners of the rear face, at lamp height.
     """
     c, s = torch.cos(yaw)[:, None, :], torch.sin(yaw)[:, None, :]  # [E, 1, B]
     cx, cy = center_xy[:, None, :, 0], center_xy[:, None, :, 1]
@@ -212,7 +249,13 @@ def _ray_obb(oz: float, d, center_xy, yaw, half_l, half_w, height):
     hit = (tmax >= tmin) & (tmax > 0.0) & (tmin > 0.05)
     # Face shading by entry axis: side faces darker, top brightest.
     shade = torch.where(tmin == tminz, 1.0, torch.where(tmin == tminx, 0.72, 0.55))
-    return torch.where(hit, tmin, INF), shade
+    if not lamps:
+        return torch.where(hit, tmin, INF), shade
+    rear = hit & (tmin == tminx) & (dx > 0.0)  # entered through the rear face
+    yfrac = (oy + tmin * dy).abs() / torch.clamp(half_w, min=1e-3)
+    z_hit = oz + tmin * dz
+    lamp = rear & (yfrac > 0.50) & (yfrac < 0.94) & (z_hit > 0.42) & (z_hit < 0.76)
+    return torch.where(hit, tmin, INF), shade, lamp.to(torch.float32)
 
 
 def _ray_cylinder(oz: float, d, center_xy, radius: float, height: float):
@@ -318,6 +361,9 @@ def render_frame(
     amp = (0.035 * road + 0.05 * (1.0 - road)) * amp_v
     g = torch.clamp(g + (amp * tex)[..., None], 0.0, 1.0)
     ground_color = g * (1 - marking[..., None]) + _color(_MARKING, dev) * marking[..., None]
+    if _CROSSWALKS:
+        jm = (_junction_markings(net, ego_pos, gxy) * road)[..., None]
+        ground_color = ground_color * (1 - jm) + _color(_MARKING, dev) * jm
 
     # --- vehicles (all but the ego, unless a chase view includes it) and the
     # K nearest buildings: one merged slab pass over vertical boxes, in
@@ -335,6 +381,18 @@ def render_frame(
     box_h = [torch.full((E, V1), VEH_HEIGHT, dtype=torch.float32, device=dev)]
     box_alive = [world.veh_alive[:, lo:]]
     box_pal = [veh_pal.reshape(1, V1, 3).expand(E, V1, 3)]
+    # Taillight glow a vehicle (the switches; zero by default): brake lamps
+    # when braking hard, dim constant lamps at night.
+    lamps = _LAMPS or _NIGHT_LAMPS
+    if lamps:
+        vbrake = torch.clamp(world.veh_control[:, lo:, 2], 0.0, 1.0)
+        vbrake = vbrake * (1.0 - world.veh_reverse[:, lo:].to(torch.float32))
+        veh_glow = torch.zeros((E, V1), device=dev)
+        if _LAMPS:
+            veh_glow = torch.maximum(veh_glow, torch.where(vbrake > 0.45, 0.4 + 0.5 * vbrake, 0.0))
+        if _NIGHT_LAMPS:
+            veh_glow = torch.maximum(veh_glow, 0.55 * wx.night_level(widx)[:, None])
+        box_glow = [veh_glow]
     if Bg > 0:
         d2b = torch.sum((net.bldg_xy - ego_pos[:, None]) ** 2, dim=-1)  # [E, Bg]
         nearb = nearest_k(d2b, KB)  # [E, KB]
@@ -345,9 +403,13 @@ def render_frame(
         box_h.append(net.bldg_h[nearb])
         box_alive.append(torch.ones((E, KB), dtype=torch.bool, device=dev))
         box_pal.append(const(_BLDG_COLORS, torch.float32, dev)[nearb % len(_BLDG_COLORS)])
+        if lamps:
+            box_glow.append(torch.zeros((E, KB), device=dev))
+    glow_pix = 0.0  # the vehicle layer's emissive strength
     if V1 + KB > 0:
-        t_box, shade = _ray_obb(oz, rays, torch.cat(box_xy, 1), torch.cat(box_yaw, 1),
-                                torch.cat(box_hl, 1), torch.cat(box_hw, 1), torch.cat(box_h, 1))
+        t_box, shade, *lamp = _ray_obb(oz, rays, torch.cat(box_xy, 1), torch.cat(box_yaw, 1),
+                                       torch.cat(box_hl, 1), torch.cat(box_hw, 1),
+                                       torch.cat(box_h, 1), lamps)
         t_box = torch.where(torch.cat(box_alive, 1)[:, None, :], t_box, INF)
         # The solve is materialised once in bf16 (the JAX function's
         # optimization barrier): t only picks the winning surface, and the
@@ -363,6 +425,11 @@ def render_frame(
         w_v = is_min.to(torch.float32) / count  # [E, N, B]
         sh_v = torch.sum(w_v * sh16.to(torch.float32), dim=-1)
         v_color = torch.bmm(w_v, torch.cat(box_pal, 1)) * sh_v[..., None]
+        if lamps:  # blend the winning pixel toward the emissive lamp color
+            gl16 = (lamp[0] * torch.cat(box_glow, 1)[:, None, :]).to(torch.bfloat16)
+            glow_pix = torch.clamp(torch.sum(w_v * gl16.to(torch.float32), dim=-1), 0.0, 1.0)
+            v_color = (v_color * (1.0 - glow_pix[..., None])
+                       + _color(_TAILLIGHT, dev) * glow_pix[..., None])
     else:  # ego-only, building-free world
         t_v = torch.full((E, N), INF, device=dev)
         v_color = torch.zeros((E, N, 3), device=dev)
@@ -398,12 +465,13 @@ def render_frame(
         head_color = torch.zeros((E, N, 3), device=dev)
 
     # --- compose: nearest hit wins ---
-    # Emissive strength: 1.0 for traffic-light heads (taillight glow is off).
+    # Emissive strength: 1.0 for traffic-light heads, the glow for taillight
+    # pixels (0 unless a lamp switch is on).
     t_hit = t_ground
     surf = ground_color
     emissive = torch.zeros((E, N), device=dev)
     for t_layer, c_layer, em in (
-        (t_v, v_color, 0.0),
+        (t_v, v_color, glow_pix),
         (t_p, _color(_PED_COLOR, dev), 0.0),
         (t_pole_min, _color(_POLE, dev), 0.0),
         (t_h, head_color, 1.0),

@@ -49,6 +49,11 @@ def _per_env(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape + (1,) * (like.dim() - x.dim()))
 
 
+def night_level(weather_idx: torch.Tensor) -> torch.Tensor:
+    """0..1 darkness factor [E] (1 for the night preset): taillight gating."""
+    return _row(_NIGHT, weather_idx)
+
+
 def sky_color(weather_idx: torch.Tensor, elev01: torch.Tensor) -> torch.Tensor:
     """Sky gradient; elev01 [E, ...] in [0,1], 0 = horizon. Returns [E, ..., 3]."""
     top = _row(_SKY_TOP, weather_idx)  # [E, 3]

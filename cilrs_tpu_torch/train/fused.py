@@ -17,7 +17,14 @@ Oversampling parity: the notebook's WeightedRandomSampler equalizes command
 frequencies; here the equivalent inverse-frequency weighting is applied to
 the per-sample loss, with running command counts kept on the device.
 
-The sharded multi-device path (``mesh=``) waits for ROADMAP Queue 1 item 7.
+With a mesh (``parallel.mesh``: one process a GPU), the loop follows the JAX
+package's ``shard_map`` program: each rank owns a block of the envs and a ring
+of ``buffer_frames / N`` rows, collects with no collective but the sum of the
+ring's counters, and trains on a local batch from its own ring with a sampler
+stream of its own; the gradients, the BatchNorm running statistics and the
+losses are averaged over the ranks in one flat all-reduce a step, so the
+replicated weights stay bit-identical. BatchNorm normalizes by the local
+batch's statistics in the forward, as under ``shard_map``.
 """
 
 from __future__ import annotations
@@ -37,14 +44,19 @@ from cilrs_tpu_torch.maps.network import RoadNetwork
 from cilrs_tpu_torch.models.losses import cilrs_loss
 from cilrs_tpu_torch.ops.gather import gather_rows_paged, padded_row_elems
 from cilrs_tpu_torch.ops.image import normalize
+from cilrs_tpu_torch.parallel.fleet import shard_collect_fleet
+from cilrs_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_, all_reduce_sum_, replicate
 from cilrs_tpu_torch.render.camera import CameraSpec
 from cilrs_tpu_torch.render.raster import CAMERA
-from cilrs_tpu_torch.train.loop import EMA
+from cilrs_tpu_torch.train.loop import EMA, running_stats
 from cilrs_tpu_torch.train.state import TrainState, create_train_state
 from cilrs_tpu_torch.train.steps import make_train_forward
 
 VAL_SEED_OFFSET = 10_000  # the val fleet is seeded seed + 10,000
 SAMPLE_SEED_OFFSET = 7  # the sampler's draws: the JAX loop's PRNGKey(seed + 7)
+# Rank r's sampler and step draws are seeded seed + 7 + RANK_SEED_STRIDE * r
+# (the JAX loop folds the rank into its key): rank 0 draws the single path's.
+RANK_SEED_STRIDE = 1_000_003
 REDRAWS = 3  # redraws of an invalid pick
 
 
@@ -86,10 +98,13 @@ def _ring_slices(cursor: int, m: int, n: int):
         yield slice(0, m - first), slice(first, m)
 
 
-def write_chunk(buf: ReplayBuffer, frames, speed_kmh, command, controls, moving) -> ReplayBuffer:
+def write_chunk(buf: ReplayBuffer, frames, speed_kmh, command, controls, moving,
+                mesh: Mesh | None = None) -> ReplayBuffer:
     """Append a flattened chunk [M, ...] at the cursor (ring semantics), in
     place. Stationary frames are written but marked invalid (the reference
-    skips them, collect_data.py:678-679)."""
+    skips them, collect_data.py:678-679). With a mesh, the ring is the rank's
+    and the counters global: every rank adds the sum over the ranks of the
+    chunk's valid frames and command counts (one all-reduce)."""
     m, n = frames.shape[0], buf.capacity
     if m > n:
         raise ValueError(f"a chunk of {m} frames does not fit a ring of {n}")
@@ -101,9 +116,13 @@ def write_chunk(buf: ReplayBuffer, frames, speed_kmh, command, controls, moving)
         buf.images[dst, :d].copy_(frames[src].reshape(-1, d))
         for k, v in cols.items():
             getattr(buf, k)[dst].copy_(v[src])
-    buf.total_written += moving.sum()
     cmds = torch.arange(4, dtype=command.dtype, device=command.device)
-    buf.cmd_counts += ((command[:, None] == cmds) & moving[:, None]).float().sum(0)
+    counts = ((command[:, None] == cmds) & moving[:, None]).sum(0)
+    inc = torch.cat([moving.sum()[None], counts]).double()  # exact integers
+    if mesh is not None:
+        all_reduce_sum_(mesh, [inc])
+    buf.total_written += inc[0].long()
+    buf.cmd_counts += inc[1:].float()
     buf.cursor = (buf.cursor + m) % n
     buf.filled = min(buf.filled + m, n)
     return buf
@@ -161,11 +180,14 @@ def sample_batch(buf: ReplayBuffer, draws: torch.Tensor) -> dict:
             "controls": buf.controls[idx], "weights": w, "idx": idx}
 
 
-def make_weighted_train_step(cfg: TrainConfig):
+def make_weighted_train_step(cfg: TrainConfig, mesh: Mesh | None = None):
     """The per-sample-weighted train step. The loss weights are ``cfg.loss``
     as they are (no train-time boosts, unlike ``train.steps.make_train_step``);
     ``plain_loss`` is the unweighted ``cilrs_loss``. The step's draws depend
-    only on (seed, step)."""
+    only on (seed, step). With a mesh (the JAX step's ``axis_name``), the
+    gradients, the BatchNorm running statistics and both losses are averaged
+    over the ranks in one flat all-reduce before the update (so the clip
+    sees the averaged gradient)."""
     loss_cfg = cfg.loss
     forward = make_train_forward()
 
@@ -182,13 +204,18 @@ def make_weighted_train_step(cfg: TrainConfig):
         plain, _ = cilrs_loss(controls, pred_speed, batch["controls"], batch["speed"], loss_cfg)
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        losses = torch.stack([total.detach(), plain.detach()])
+        if mesh is not None:
+            model = state.model
+            all_reduce_mean_(mesh, [p.grad for p in model.parameters() if p.grad is not None]
+                             + running_stats(model) + [losses])
         state.apply_gradients()
-        return {"loss": total.detach(), "plain_loss": plain.detach()}
+        return {"loss": losses[0], "plain_loss": losses[1]}
 
     return step
 
 
-def collect_chunk(fleet: CollectFleet, buf: ReplayBuffer) -> None:
+def collect_chunk(fleet: CollectFleet, buf: ReplayBuffer, mesh: Mesh | None = None) -> None:
     """One chunk of the fleet into the ring, flattened env-major (row e*T +
     t). Label hygiene: only moving frames of nominal driving are valid;
     recovery episodes steer by a hash, which behaviour cloning cannot learn."""
@@ -196,7 +223,7 @@ def collect_chunk(fleet: CollectFleet, buf: ReplayBuffer) -> None:
     flat = lambda x: x.reshape((-1,) + x.shape[2:])
     speed = flat(outs["speed_kmh"])
     write_chunk(buf, flat(outs["frame"]), speed, flat(outs["command"]), flat(outs["control"]),
-                (speed > MIN_SPEED_KMH) & (flat(outs["status"]) == ST_OK))
+                (speed > MIN_SPEED_KMH) & (flat(outs["status"]) == ST_OK), mesh)
 
 
 def train_chunk(state: TrainState, buf: ReplayBuffer, gen: torch.Generator, step, batch: int,
@@ -209,10 +236,12 @@ def train_chunk(state: TrainState, buf: ReplayBuffer, gen: torch.Generator, step
 
 
 @torch.inference_mode()
-def eval_loss(model: torch.nn.Module, val: dict, batch: int, loss_cfg) -> torch.Tensor:
+def eval_loss(model: torch.nn.Module, val: dict, batch: int, loss_cfg,
+              mesh: Mesh | None = None) -> torch.Tensor:
     """Loss over the validation set in batches of ``batch``, masked by
     validity, with ``model`` in eval mode: [5] on the device, the total and
-    the weighted steer/throttle/brake/speed terms."""
+    the weighted steer/throttle/brake/speed terms. With a mesh, ``val`` is the
+    rank's block, and the sums and the count are summed over the ranks."""
     model.eval()
     dev = val["speed"].device
     s, c = torch.zeros(4, device=dev), torch.zeros((), device=dev)
@@ -227,6 +256,10 @@ def eval_loss(model: torch.nn.Module, val: dict, batch: int, loss_cfg) -> torch.
         m = sl["valid"].float()
         s = s + (terms * m).sum(1)
         c = c + m.sum()
+    if mesh is not None:
+        sums = torch.cat([s, c[None]])
+        all_reduce_sum_(mesh, [sums])
+        s, c = sums[:4], sums[4]
     terms = s / torch.clamp(c, min=1.0)
     return torch.cat([terms.sum()[None], terms])
 
@@ -261,12 +294,23 @@ def fused_collect_train(
     collects a chunk (until the settle tail: the last ``settle_fraction`` of
     the steps train on the final ring) and trains ``train_steps_per_chunk``
     steps, followed by one EMA update; every ``eval_every`` steps both the
-    EMA and the raw weights are scored on the held-out set."""
-    if mesh is not None:
-        raise NotImplementedError("the sharded multi-device fused loop waits for ROADMAP "
-                                  "Queue 1 item 7 (parallel/)")
+    EMA and the raw weights are scored on the held-out set.
+
+    With ``mesh`` (``parallel.mesh.make_mesh()``), this rank runs its block
+    of both fleets (every rank builds the whole fleets, so the host's draws
+    and the per-env seeds are the world-1 ones), a ring of ``buffer_frames /
+    N`` rows and a local batch of ``max(B // N, 1)``; its held-out set is the
+    freshest ``max(V_local_total, B)`` frames of its val ring (``V_local_total
+    = (min(4096, buffer_frames // 4) // (B N)) B``), and the evals sum over
+    the ranks. Only rank 0 prints."""
     cfg = cfg or TrainConfig()
     dev = require_cuda(device)
+    B = cfg.training.batch_size
+    n = 1 if mesh is None else mesh.world
+    if num_envs % n or buffer_frames % n:
+        raise ValueError(f"{num_envs} envs and a {buffer_frames}-frame ring must split "
+                         f"over {n} ranks")
+    verbose = verbose and (mesh is None or mesh.rank == 0)
     # Each ego starts at its route's start waypoint: spawned elsewhere, pure
     # pursuit toward a distant route makes off-route labels that poison the
     # early data. The val stream is a second fleet, not a slice of the train
@@ -276,31 +320,38 @@ def fused_collect_train(
                                collect_ticks, cam, dev)
     vfleet = make_collect_fleet(net, num_envs, num_vehicles, num_pedestrians, None,
                                 seed + VAL_SEED_OFFSET, collect_ticks, cam, dev)
-    buf = make_buffer(buffer_frames, cam.height, cam.width, dev)
     state = create_train_state(cfg, seed, steps_per_epoch=max(total_train_steps // cfg.training.epochs, 1),
                                schedule="cosine", total_steps=total_train_steps, device=dev)
-    B = cfg.training.batch_size
+    sample_seed = seed + SAMPLE_SEED_OFFSET
+    # Held-out set: at least one batch (B > buffer/4 would floor V to 0).
+    V = max((min(4096, buffer_frames // 4) // B) * B, B)
+    if mesh is not None:
+        fleet, vfleet = shard_collect_fleet(fleet, mesh), shard_collect_fleet(vfleet, mesh)
+        replicate(mesh, list(state.model.parameters()) + list(state.model.buffers()))
+        sample_seed += RANK_SEED_STRIDE * mesh.rank
+        val_size = max((min(4096, buffer_frames // 4) // (B * n)) * B, B)
+        B_local = max(B // n, 1)
+    else:
+        val_size, B_local = V, B
+    buf = make_buffer(buffer_frames // n, cam.height, cam.width, dev)
     # Polyak average of the params and the BatchNorm statistics together,
     # for evaluation and deployment: one update a chunk.
     ema = EMA(state.model)
-    step = make_weighted_train_step(cfg)
-    sample_seed = seed + SAMPLE_SEED_OFFSET
+    step = make_weighted_train_step(cfg, mesh)
     gen = torch.Generator(device=dev).manual_seed(sample_seed)
 
     t0 = time.time()
     for _ in range(warmup_chunks):
-        collect_chunk(fleet, buf)
+        collect_chunk(fleet, buf, mesh)
     if verbose:
         frames0 = int(buf.total_written)
         print(f"  warmup: {frames0} frames in {time.time() - t0:.1f}s "
               f"({frames0 / max(time.time() - t0, 1e-9):,.0f} frames/s)", flush=True)
 
-    # Held-out set: at least one batch (B > buffer/4 would floor V to 0).
-    V = max((min(4096, buffer_frames // 4) // B) * B, B)
-    vbuf = make_buffer(buffer_frames, cam.height, cam.width, dev)
+    vbuf = make_buffer(buffer_frames // n, cam.height, cam.width, dev)
     for _ in range(max(warmup_chunks, (2 * V) // max(num_envs * collect_ticks, 1) + 1)):
-        collect_chunk(vfleet, vbuf)
-    val_set = snapshot_val_slice(vbuf, V)
+        collect_chunk(vfleet, vbuf, mesh)
+    val_set = snapshot_val_slice(vbuf, val_size)
     del vbuf, vfleet  # free the val ring before training starts
 
     # Settle tail: the stream is about one pass over each frame, so the last
@@ -312,13 +363,13 @@ def fused_collect_train(
     t1 = time.time()
     while steps_done < total_train_steps:
         if steps_done < stream_steps:
-            collect_chunk(fleet, buf)
-        loss = train_chunk(state, buf, gen, step, B, train_steps_per_chunk, sample_seed)
+            collect_chunk(fleet, buf, mesh)
+        loss = train_chunk(state, buf, gen, step, B_local, train_steps_per_chunk, sample_seed)
         ema.update(state.model, train_steps_per_chunk)
         steps_done += train_steps_per_chunk
         if steps_done % eval_every < train_steps_per_chunk:
-            terms = eval_loss(ema.model, val_set, B, cfg.loss).cpu().numpy()
-            raw = eval_loss(state.model, val_set, B, cfg.loss).cpu().numpy()
+            terms = eval_loss(ema.model, val_set, B, cfg.loss, mesh).cpu().numpy()
+            raw = eval_loss(state.model, val_set, B, cfg.loss, mesh).cpu().numpy()
             frames = int(buf.total_written)
             history.append({
                 "step": steps_done, "val_loss": float(terms[0]),

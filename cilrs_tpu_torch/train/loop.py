@@ -13,12 +13,20 @@ The table is either the caller's (``resident=``, the dict that
 ``data.resident.ship_resident`` returns: global rows, val rows read in place,
 or snapshotted through the kernel into their own table when ``refresh_fn``
 swaps the train table) or shipped once from ``ds`` (the train split and a val
-subset, each capped as the JAX package caps them). The JAX package's
-host-batch prefetch branch serves multi-device meshes and comes with the
-multi-device slice; its multi-page split gather and the
-``CILRS_TPU_FUSED_GATHER`` / ``CILRS_TPU_EVAL_ONESHOT`` switches work around
-TPU compiler faults and have no counterpart here (one kernel launch serves
-every page).
+subset, each capped as the JAX package caps them).
+
+With a mesh of more than one rank (``parallel.mesh``), the loop takes the
+JAX package's host-batch branch instead: the weighted sampler draws the
+global batch on every rank, each rank gathers its block from the host
+arrays, pins it and copies it to its GPU on a prefetch thread, and the train
+step is data parallel (``train.steps``: global-batch BatchNorm, averaged
+gradients). The EMA updates once a step, and validation runs the whole val
+split in sharded host batches whose loss and per-command sums are
+all-reduced. A mesh of 1 keeps the resident path.
+
+The JAX package's multi-page split gather and its ``CILRS_TPU_FUSED_GATHER``
+/ ``CILRS_TPU_EVAL_ONESHOT`` switches work around TPU compiler faults and
+have no counterpart here (one kernel launch serves every page).
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ import copy
 import csv
 import dataclasses
 import os
+import queue
+import threading
 import time
 
 import numpy as np
@@ -36,6 +46,8 @@ from cilrs_tpu_torch.cli.common import require_cuda
 from cilrs_tpu_torch.config import COMMAND_NAMES, TrainConfig
 from cilrs_tpu_torch.data.dataset import DriveDataset, WeightedBatchSampler, stratified_split
 from cilrs_tpu_torch.data.resident import LABEL_KEYS, gather_group, ship_resident, snapshot_rows
+from cilrs_tpu_torch.parallel.distributed import is_coordinator
+from cilrs_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_, block, replicate
 from cilrs_tpu_torch.train import checkpoint as ckpt
 from cilrs_tpu_torch.train.state import TrainState, create_train_state
 from cilrs_tpu_torch.train.steps import make_eval_step, make_train_step
@@ -65,17 +77,73 @@ def eval_group(model: torch.nn.Module, table: dict, idxs: np.ndarray, eval_step)
             torch.stack([o["cmd_count"] for o in outs]))
 
 
+def _prefetch(it, make, depth: int = 3):
+    """``make(item)`` for each item of ``it`` on a worker thread, up to
+    ``depth`` results queued ahead, so the host gather and the copy to the
+    card overlap the card's current step. An exception in the worker is
+    raised here."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = object()
+
+    def worker():
+        try:
+            for item in it:
+                q.put(make(item))
+        except BaseException as e:  # handed to the consumer, which raises it
+            q.put(e)
+        q.put(stop)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while (out := q.get()) is not stop:
+        if isinstance(out, BaseException):
+            raise out
+        yield out
+
+
+def host_batch(ds: DriveDataset, rows: np.ndarray, mesh: Mesh, device: torch.device) -> dict:
+    """The rank's block of the global batch ``rows`` from the host arrays, on
+    ``device`` (through pinned memory, without waiting, on a GPU)."""
+    rows = rows[block(mesh, len(rows))]
+    batch = {"images": ds.images[rows], "speed": ds.speed_norm[rows], "command": ds.command[rows],
+             "controls": ds.controls[rows]}
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+    return out
+
+
+def _validate_dp(model: torch.nn.Module, ds: DriveDataset, val_batches: np.ndarray, eval_step,
+                 mesh: Mesh, device: torch.device):
+    """_validate over sharded host batches: each rank evaluates its block of
+    every batch; the batch losses (means over equal blocks) and the
+    per-command sums are summed over the ranks in one all-reduce."""
+    model.eval()
+    sums = torch.zeros(9, dtype=torch.float64, device=device)
+    for batch in _prefetch(val_batches, lambda r: host_batch(ds, r, mesh, device)):
+        parts = eval_step(model, batch)
+        sums += torch.cat([parts["loss"][None], parts["cmd_steer_err_sum"], parts["cmd_count"]])
+    all_reduce_sum_(mesh, [sums])
+    sums = sums.cpu().numpy()
+    vl = float(sums[0] / (len(val_batches) * mesh.world)) if len(val_batches) else float("nan")
+    return vl, sums[1:5], sums[5:]
+
+
 def _table(src: dict, page_rows: int, image_shape: tuple) -> dict:
     images = src["images"] if isinstance(src["images"], tuple) else (src["images"],)
     return {"images": images, "page_rows": page_rows, "image_shape": image_shape,
             **{k: src[k] for k in LABEL_KEYS}}
 
 
+def running_stats(model: torch.nn.Module) -> list[torch.Tensor]:
+    """The BatchNorm running statistics of ``model`` (``num_batches_tracked``
+    is a counter, not a statistic)."""
+    return [b for name, b in model.named_buffers() if not name.endswith("num_batches_tracked")]
+
+
 def _averaged(model: torch.nn.Module) -> list[torch.Tensor]:
-    """The tensors the EMA averages: every parameter and BN running statistic
-    (``num_batches_tracked`` is a counter, not a statistic)."""
-    return list(model.parameters()) + [b for name, b in model.named_buffers()
-                                       if not name.endswith("num_batches_tracked")]
+    """The tensors the EMA averages: every parameter and BN running statistic."""
+    return list(model.parameters()) + running_stats(model)
 
 
 class EMA:
@@ -128,6 +196,7 @@ def train(
     train_row_mask: np.ndarray | None = None,
     eval_every: int = 1,
     stream_seed: int | None = None,
+    mesh: Mesh | None = None,
 ) -> dict:
     """Full training run on ``device``. Returns {"history", "best_val_loss",
     "state" (the raw iterate, the resume point), "eval_state" (the deployed
@@ -142,9 +211,22 @@ def train(
     swapped for ``refresh_fn(i)`` = (table, labels_ds) with the same
     ``page_rows``; the val rows were snapshotted first, so val_loss stays
     comparable across refreshes.
+
+    With ``mesh`` of more than one rank (``parallel.mesh.make_mesh()``, one
+    process a GPU on ``device``), the data-parallel host-batch branch runs
+    (see the module docstring): the batch is rounded to a multiple of the
+    world size, ``ds`` must hold the images, and ``resident`` is refused.
+    Only rank 0 prints and writes checkpoints.
     """
     cfg = cfg or TrainConfig()
     dev = require_cuda(device)
+    dp = mesh is not None and mesh.world > 1
+    if dp and resident is not None:
+        raise ValueError("resident-table training is the single-device path: a mesh of "
+                         f"{mesh.world} ranks trains from host batches")
+    # Only rank 0 prints and writes; every rank reads a resume checkpoint.
+    verbose = verbose and is_coordinator()
+    save_dir = ckpt_dir if is_coordinator() else None
     if refresh_fn is not None and (max_train_frames is not None or train_row_mask is not None):
         # The restrictions hold for the INITIAL split only; a refresh would
         # silently drop them.
@@ -169,6 +251,8 @@ def train(
             print(f"  train split restricted {before} -> {len(train_idx)} rows "
                   f"(train_row_mask)", flush=True)
     B = cfg.training.batch_size
+    if dp:  # even blocks
+        B = max(mesh.world, (B // mesh.world) * mesh.world)
     spe = steps_per_epoch or max(1, len(train_idx) // B)
 
     # stream_seed reseeds init, sampler and the step draws, leaving the split
@@ -188,13 +272,15 @@ def train(
         if verbose:
             print(f"  trunk initialized from {pretrained_backbone} "
                   f"(ImageNet-pretrained resnet34, notebook PART B parity)")
+    if dp:
+        replicate(mesh, list(state.model.parameters()) + list(state.model.buffers()))
     start_epoch, best_val = 0, float("inf")
     if resume and ckpt_dir:
         state, start_epoch, best_val = ckpt.restore_latest(ckpt_dir, state)
         if verbose and start_epoch:
             print(f"  resumed from epoch {start_epoch} (val {best_val:.4f})")
 
-    train_step = make_train_step(cfg)
+    train_step = make_train_step(cfg, mesh if dp else None)
     eval_step = make_eval_step(cfg)
     ema = EMA(state.model) if cfg.training.ema_eval else None
 
@@ -212,6 +298,9 @@ def train(
             val_table, val_rows = train_table, np.asarray(val_idx)
         else:
             val_table, val_rows = snapshot_rows(train_table, val_idx), np.arange(len(val_idx))
+    elif dp:  # host batches of the whole split, as the JAX package's
+        train_table = val_table = None
+        val_rows = np.asarray(val_idx)
     else:
         frame_bytes = int(np.prod(ds.images.shape[1:])) * ds.images.itemsize
         # The JAX package's caps (a 16 GB TPU's HBM), kept so both packages
@@ -253,12 +342,19 @@ def train(
         # global rows of the caller's table through train_idx.
         its = np.stack(list(sampler.epoch(spe)))
         losses = []
-        for s in range(0, spe, STEPS_PER_CALL):
-            grp = its[s:s + STEPS_PER_CALL]
-            losses.append(train_group(state, train_table, train_idx[grp] if res_mode else grp,
-                                      seed, train_step))
-            if ema is not None:
-                ema.update(state.model, len(grp))
+        if dp:
+            for batch in _prefetch(its, lambda it: host_batch(ds, train_idx[it], mesh, dev)):
+                losses.append(train_step(state, batch, seed)["loss"])
+                if ema is not None:
+                    ema.update(state.model, 1)
+            losses = [torch.stack(losses[s:s + STEPS_PER_CALL]) for s in range(0, spe, STEPS_PER_CALL)]
+        else:
+            for s in range(0, spe, STEPS_PER_CALL):
+                grp = its[s:s + STEPS_PER_CALL]
+                losses.append(train_group(state, train_table, train_idx[grp] if res_mode else grp,
+                                          seed, train_step))
+                if ema is not None:
+                    ema.update(state.model, len(grp))
         losses = [l.cpu().numpy() for l in losses]  # the epoch's one sync of train losses
         group_losses += [float(np.mean(l)) for l in losses]
         train_loss = float(np.mean(np.concatenate(losses)))
@@ -267,10 +363,13 @@ def train(
         # exactly what the val numbers measured), and on the raw iterate.
         eval_state = dataclasses.replace(state, model=ema.model) if ema is not None else state
         do_eval = (epoch + 1) % max(eval_every, 1) == 0 or epoch + 1 == cfg.training.epochs
+        if dp:
+            validate = lambda model: _validate_dp(model, ds, val_batches, eval_step, mesh, dev)
+        else:
+            validate = lambda model: _validate(model, val_table, val_batches, eval_step)
         if do_eval:
-            val_loss, err_sum, cnt = _validate(eval_state.model, val_table, val_batches, eval_step)
-            val_loss_raw = (_validate(state.model, val_table, val_batches, eval_step)[0]
-                            if ema is not None else val_loss)
+            val_loss, err_sum, cnt = validate(eval_state.model)
+            val_loss_raw = validate(state.model)[0] if ema is not None else val_loss
         else:
             val_loss = val_loss_raw = float("nan")
             err_sum, cnt = np.zeros(4), np.zeros(4)
@@ -297,20 +396,20 @@ def train(
             patience = 0
         elif do_eval:  # skipped-eval epochs advance neither patience nor best
             patience += 1
-        if ckpt_dir:
+        if save_dir:
             # Latest slot = the RAW resume state, every ckpt_every epochs and
             # at the end; best slot = the weights the val pass measured.
             if ((epoch + 1) % ckpt_every == 0 or epoch + 1 == cfg.training.epochs
                     or patience >= cfg.training.early_stop_patience):
-                ckpt.save_checkpoint(ckpt_dir, state, epoch + 1, val_loss,
+                ckpt.save_checkpoint(save_dir, state, epoch + 1, val_loss,
                                      extra={"cmd_steer_errors": cmd_err}, is_best=False,
                                      latest=True)
             if improved:
-                ckpt.save_checkpoint(ckpt_dir, cand_state, epoch + 1, cand_val,
+                ckpt.save_checkpoint(save_dir, cand_state, epoch + 1, cand_val,
                                      extra={"cmd_steer_errors": cmd_err}, is_best=True,
                                      latest=False)
             # Rewritten every epoch: a run killed mid-way keeps its curve.
-            _write_history(os.path.join(ckpt_dir, "training_history.csv"), history)
+            _write_history(os.path.join(save_dir, "training_history.csv"), history)
         if patience >= cfg.training.early_stop_patience:
             if verbose:
                 print(f"  early stop at epoch {epoch + 1}")
@@ -339,12 +438,12 @@ def train(
                 print(f"  train table refreshed: {len(new_ds)} fresh frames "
                       f"({time.time() - t_r:.0f}s)", flush=True)
 
-    if ckpt_dir:
-        _write_history(os.path.join(ckpt_dir, "training_history.csv"), history)
+    if save_dir:
+        _write_history(os.path.join(save_dir, "training_history.csv"), history)
         try:
             from cilrs_tpu_torch.train.plots import plot_training_curves
 
-            plot_training_curves(history, os.path.join(ckpt_dir, "training_curves.png"))
+            plot_training_curves(history, os.path.join(save_dir, "training_curves.png"))
         except Exception as e:  # matplotlib optional
             if verbose:
                 print(f"  (training curves skipped: {e})")

@@ -12,19 +12,32 @@ uninterrupted one would have.
 
 Eval: the forward in eval mode, the loss parts, per-command |steer error|
 sums and counts, and ``pred`` = [steer, throttle, brake, pred_speed].
+
+Data parallel (``mesh=``, the train loop's host-batch branch): each rank
+holds its block of a global batch, which the JAX package trains as one
+global-batch ``jit``. So the augmentation draws are the global batch's, of
+which the rank applies its rows; BatchNorm normalizes by the global batch's
+statistics, and dropout applies the rank's rows of the global batch's masks
+(``models.cilrs.global_batch``); the gradients and the loss parts are
+averaged over the ranks in one flat all-reduce before the update. So a world
+of N differs from a world of 1 only in the order of its reductions.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from cilrs_tpu_torch.config import TrainConfig
+from cilrs_tpu_torch.models.cilrs import global_batch
 from cilrs_tpu_torch.models.losses import cilrs_loss
+from cilrs_tpu_torch.models.resnet import GlobalBatch
 from cilrs_tpu_torch.ops.image import augment_batch, normalize
+from cilrs_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_, all_reduce_sum, block
 from cilrs_tpu_torch.train.state import TrainState
 
 
@@ -39,10 +52,12 @@ def step_seeds(seed: int, step: int) -> tuple[int, int]:
     return int(a), int(d)
 
 
-def make_train_forward():
+def make_train_forward(mesh: Mesh | None = None):
     """The train-mode forward of a step: u8 -> /255 -> augmentation ->
     normalize -> the model in train mode, with the draws of update
-    ``state.step`` of a run seeded ``seed``. Returns (controls, pred_speed)."""
+    ``state.step`` of a run seeded ``seed``. Returns (controls, pred_speed).
+    With ``mesh``, the batch is the rank's block of a global batch (see the
+    module docstring)."""
     generators: dict[torch.device, torch.Generator] = {}
 
     def forward(state: TrainState, batch: dict, seed: int):
@@ -51,16 +66,25 @@ def make_train_forward():
         if dev not in generators:
             generators[dev] = torch.Generator(device=dev)
         gen = generators[dev].manual_seed(aug_seed)
-        x = normalize(augment_batch(gen, batch["images"].float() / 255.0))
+        images = batch["images"].float() / 255.0
+        if mesh is None:
+            gb = None
+            x = augment_batch(gen, images)
+        else:
+            n = images.shape[0] * mesh.world
+            gb = GlobalBatch(n, block(mesh, n), functools.partial(all_reduce_sum, mesh))
+            x = augment_batch(gen, images, n, gb.rows)
+        x = normalize(x)
         model = state.model.train()
-        with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+        with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []), \
+                global_batch(model, gb):
             torch.manual_seed(drop_seed)
             return model(x, batch["speed"], batch["command"])
 
     return forward
 
 
-def make_train_step(cfg: TrainConfig):
+def make_train_step(cfg: TrainConfig, mesh: Mesh | None = None):
     loss_cfg = cfg.loss
     if cfg.training.speed_loss_boost != 1.0 or cfg.training.brake_loss_boost != 1.0:
         # Train-time-only reweighting of the aux speed / brake heads; eval
@@ -70,18 +94,23 @@ def make_train_step(cfg: TrainConfig):
             speed_weight=loss_cfg.speed_weight * cfg.training.speed_loss_boost,
             brake_weight=loss_cfg.brake_weight * cfg.training.brake_loss_boost,
         )
-    forward = make_train_forward()
+    forward = make_train_forward(mesh)
 
     def train_step(state: TrainState, batch: dict, seed: int) -> dict:
         """batch: images [B,H,W,3] u8, speed [B], command [B], controls [B,3],
-        on the model's device. Updates ``state`` in place and returns the loss
-        parts as device tensors (no host sync)."""
+        on the model's device (with a mesh, the rank's block). Updates
+        ``state`` in place and returns the loss parts (of the global batch)
+        as device tensors (no host sync)."""
         controls, pred_speed = forward(state, batch, seed)
         total, parts = cilrs_loss(controls, pred_speed, batch["controls"], batch["speed"], loss_cfg)
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        values = torch.stack([v.detach() for v in parts.values()])
+        if mesh is not None:
+            all_reduce_mean_(mesh, [p.grad for p in state.model.parameters() if p.grad is not None]
+                             + [values])
         state.apply_gradients()
-        return {k: v.detach() for k, v in parts.items()}
+        return dict(zip(parts, values))
 
     return train_step
 

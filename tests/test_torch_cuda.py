@@ -231,3 +231,90 @@ def test_fused_ring_and_sampler_on_card_match_cpu(cuda_device):
                 assert torch.allclose(got[k].cpu(), want[k], rtol=0, atol=1e-6)
             else:
                 assert torch.equal(got[k].cpu(), want[k]), k
+
+
+TINY_CFG = tc.TrainConfig(model=tc.ModelConfig(dropout=0.0, image_height=32, image_width=64,
+                                               stage_sizes=(1, 1, 1, 1)),
+                          training=tc.TrainingConfig(batch_size=16, epochs=1, ema_eval=False))
+TINY_LOOP = dict(num_envs=2, num_vehicles=3, num_pedestrians=1, buffer_frames=512, collect_ticks=10,
+                 train_steps_per_chunk=2, total_train_steps=4, warmup_chunks=2, seed=0,
+                 eval_every=4, verbose=False)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_world_of_one_over_nccl(cuda_device):
+    """A world of 1 that the arguments describe joins over NCCL on the card;
+    its collectives are exact, and the sharded fused loop in it collects the
+    single path's frames on the same seed, its history within 1e-2 (cuDNN's
+    backward is not deterministic)."""
+    import torch.distributed as dist
+
+    from cilrs_tpu_torch.parallel import distributed as tdist
+    from cilrs_tpu_torch.parallel import mesh as tmesh
+    from cilrs_tpu_torch.render.camera import CameraSpec
+    from cilrs_tpu_torch.train import fused as tf
+
+    try:
+        assert tdist.initialize_distributed(f"localhost:{_free_port()}", 1, 0)
+        assert dist.get_backend() == "nccl"
+        mesh = tmesh.make_mesh()
+        assert mesh.device.type == "cuda" and mesh.world == 1
+        x = torch.arange(10.0, device=cuda_device)
+        tmesh.all_reduce_mean_(mesh, [x[:3], x[3:]])
+        tmesh.replicate(mesh, [x])
+        assert torch.equal(x, torch.arange(10.0, device=cuda_device))
+        assert torch.equal(tmesh.all_gather(mesh, {"x": x})["x"], x) and mesh.collectives == 3
+        runs = [tf.fused_collect_train(make_mini_town(), TINY_CFG, cam=CameraSpec(width=64, height=32),
+                                       mesh=m, device=cuda_device, **TINY_LOOP)
+                for m in (mesh, None)]
+        assert mesh.collectives > 3
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    sharded, single = runs
+    assert sharded["frames_collected"] == single["frames_collected"] > 0
+    for a, b in zip(sharded["history"], single["history"], strict=True):
+        assert a["frames"] == b["frames"]
+        assert abs(a["val_loss"] - b["val_loss"]) <= 1e-2 * abs(b["val_loss"])
+
+
+def _two_ranks_on_one_card(rank: int, port: int, out: str):
+    import torch.distributed as dist
+
+    from cilrs_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank)
+    try:
+        mesh = make_mesh(2)
+        ds = make_synthetic_dataset(160, seed=9, h=32, w=64)
+        res = train(ds, TINY_CFG, steps_per_epoch=6, verbose=False, device=mesh.device, mesh=mesh)
+        torch.save({"history": res["history"],
+                    "state": {k: v.cpu() for k, v in res["state"].model.state_dict().items()}},
+                   f"{out}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_ranks_on_one_card_over_gloo(cuda_device, tmp_path):
+    """Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one GPU):
+    six steps of the train loop's data-parallel branch against world 1 on
+    the card, within 3% on the losses (tests/test_parallel.py:176-185), and
+    the two ranks' weights bit-identical."""
+    import torch.multiprocessing as tmp
+
+    tmp.spawn(_two_ranks_on_one_card, args=(_free_port(), str(tmp_path)), nprocs=2)
+    got = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    one = train(make_synthetic_dataset(160, seed=9, h=32, w=64), TINY_CFG, steps_per_epoch=6,
+                verbose=False, device=cuda_device)["history"][0]
+    for k in ("val_loss", "train_loss"):
+        assert abs(got[0]["history"][0][k] - one[k]) < 0.03 * max(1.0, abs(one[k]))
+    for k, v in got[0]["state"].items():
+        assert torch.equal(v, got[1]["state"][k]), k

@@ -63,6 +63,7 @@ from cilrs_tpu_torch.data import collect as tcol  # noqa: E402
 from cilrs_tpu_torch.maps.town import make_mini_town as t_mini  # noqa: E402
 from cilrs_tpu_torch.models.convert import flax_to_state_dict  # noqa: E402
 from cilrs_tpu_torch.ops.gather import padded_row_elems  # noqa: E402
+from cilrs_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 from cilrs_tpu_torch.render.camera import CameraSpec  # noqa: E402
 from cilrs_tpu_torch.train.checkpoint import load_policy  # noqa: E402
 from cilrs_tpu_torch.train.state import create_train_state  # noqa: E402
@@ -420,8 +421,12 @@ def test_fused_loop_history_matches_jax(loops):
 
 
 def test_mesh_waits_for_the_parallel_slice():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tfused.fused_collect_train(t_mini(), T_CFG, mesh=object(), device="cpu")
+    """The sharded path runs (tests/test_torch_parallel.py); a world that
+    does not split the envs and the ring evenly is refused, as the JAX loop
+    asserts."""
+    with pytest.raises(ValueError, match="must split over 3 ranks"):
+        tfused.fused_collect_train(t_mini(), T_CFG, num_envs=2, device="cpu",
+                                   mesh=Mesh(None, 0, 3, torch.device("cpu")))
 
 
 # --------------------------------------------------------------------------
@@ -456,5 +461,5 @@ def test_cli_fused_on_cpu(tmp_path, monkeypatch):
 def test_cli_fused_refuses_to_run_on_one_of_several_gpus(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(SystemExit, match="item 7"):
+    with pytest.raises(SystemExit, match="torchrun --nproc_per_node 4"):
         fused_cli.main(["--map", "mini"])
