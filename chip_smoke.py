@@ -8,11 +8,17 @@ its plain PyTorch version on the card, and drives the offline-evaluation path
 end to end at the full width of the repo's model (CILRS, ResNet-34 trunk,
 88x200x3 u8 frames, speed skip on, random weights from a seed):
 
-  1. build + kernel check: the row-gather kernel (a persistent grid of TMA
-     bulk copies through a shared-memory ring) against its plain version,
-     bit-exact, on u8 and f32 tables, one and two pages, repeated and
-     out-of-range indices, and a single page past 2^31 bytes; ptxas's
-     registers and shared memory;
+  1. build + kernel check: both kernels built at once (one nvcc each); the
+     row-gather kernel (a persistent grid of TMA bulk copies through a
+     shared-memory ring) against its plain version, bit-exact, on u8 and f32
+     tables, one and two pages, repeated and out-of-range indices, and a
+     single page past 2^31 bytes; ptxas's registers and shared memory;
+     then hash_sinf_check: the sin-hash kernel (glibc's sinf of a hash
+     argument) against its plain version on the CPU, bit for bit, on 4M
+     random bit patterns and the rain, grain, recovery and random hash sets
+     (``bench/hash_sets.py``), and its times at a 32-env tick's rain and
+     grain passes beside the plain version and the bound; its launches a
+     tick are counted in 8 and 11 (five a tick) and on 14's run;
   2. the normal entry point: a synthetic session on disk and a .pth policy go
      through ``python -m cilrs_tpu_torch.cli.report``'s main();
   3. train_cli: the same session trained for 2 epochs through ``python -m
@@ -139,7 +145,9 @@ import torch.multiprocessing as torch_mp
 from cilrs_tpu_torch.agent import driver as driver_mod
 from cilrs_tpu_torch.agent.driver import fleet_rollout, model_policy
 from cilrs_tpu_torch.agent.npc import draw_pedestrians
-from cilrs_tpu_torch.bench.timing import card_line, copy_bound_ms, host_us_per_call, median_ms
+from cilrs_tpu_torch.bench import hash_sets
+from cilrs_tpu_torch.bench.timing import (HBM_BYTES_PER_S, card_line, copy_bound_ms,
+                                          host_us_per_call, median_ms, queued_ms)
 from cilrs_tpu_torch.cli import benchmark as benchmark_cli
 from cilrs_tpu_torch.cli import collect as collect_cli
 from cilrs_tpu_torch.cli import drive as drive_cli
@@ -166,6 +174,8 @@ from cilrs_tpu_torch.ops.build import build
 from cilrs_tpu_torch.ops.gather import (bulk_plan, gather_rows_paged, gather_rows_plain,
                                         paged_layout)
 from cilrs_tpu_torch.ops.image import apply_augment, draw_augment, normalize
+from cilrs_tpu_torch.ops.sinf import (TOP12_120, TOP12_INF, TOP12_PIO4, TOP12_TINY, hash_argument,
+                                      hash_sinf, hash_sinf_plain)
 from cilrs_tpu_torch.parallel.fleet import make_sharded_rollout
 from cilrs_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from cilrs_tpu_torch.render import raster as raster_mod
@@ -323,6 +333,18 @@ RENDER_HASH_BOUND, RENDER_MAX_SHARE, RENDER_MAX_MEAN = 0.05, 0.005, 1e-3
 BIG_PAGE_ROWS = 2 ** 33 // ROW_BYTES + 5_000  # 8.85 GB, one page
 SWITCH_TIMEOUT_S = 300
 
+# hash_sinf_check: the sin-hash kernel against its plain version on the CPU,
+# bit for bit, on 4M random bit patterns (every exponent, infinities and
+# NaNs) and the hash sets; timed at a 32-env tick's rain pass (x [32, 88,
+# 200], a scalar y) and grain pass (x a column of [32, 17,600, 2] read in
+# place, y [32, 17,600]).
+SINF_RANDOM, SINF_ENVS = 1 << 22, 32
+# Calls of hash_sinf a simulator tick: the renderer's two rain and two grain
+# hashes, the recovery machine's reverse steer.
+SINF_CALLS_PER_TICK = 5
+# Float64 peak of an H100 SXM outside the tensor cores (NVIDIA's data sheet).
+FP64_FLOPS_PER_S = 34e12
+
 
 _START = time.time()
 
@@ -369,7 +391,7 @@ def _gather_times(pages, idx: torch.Tensor, page_rows: int) -> dict:
 
 def phase_build_and_check(dev) -> dict:
     t0 = time.time()
-    ptxas = build(["gather_rows"])
+    ptxas = build(["gather_rows", "hash_sinf"])  # one nvcc each, started together
     build_s = time.time() - t0
     g = torch.Generator(device=dev).manual_seed(1)
 
@@ -404,14 +426,102 @@ def phase_build_and_check(dev) -> dict:
     torch.cuda.empty_cache()
     return {"phase": "build_and_kernel_check", "ok": True, "build_s": round(build_s, 3),
             "cases": cases, "big_page_bytes": big_bytes,
-            "ptxas": [ln.strip() for ln in ptxas.get("gather_rows", "").splitlines()
-                      if "registers" in ln or "spill" in ln or "smem" in ln],
+            "ptxas": {name: [ln.strip() for ln in log.splitlines()
+                             if "registers" in ln or "spill" in ln or "smem" in ln]
+                      for name, log in ptxas.items()},
             # The ring is dynamic shared memory, which ptxas does not see: the
             # launch plan at the path's 3,000 rows, smem_bytes a block.
             "launch_plan": dict(zip(
                 ("chunk_bytes", "chunks_per_row", "stages", "grid", "smem_bytes"),
                 bulk_plan(ROW_BYTES, BATCH * GROUP_BATCHES,
                           torch.cuda.get_device_properties(dev).multi_processor_count)))}
+
+
+def _sinf_ops(x: torch.Tensor, a: float, y) -> int:
+    """The float64 operations the kernel does on these arguments: the
+    argument's product (and sum), then by the range of |argument| the
+    reduction's (2^-12 and below: none; under 0.75: x*x; under 120: five;
+    larger: three, besides integer work not counted) and ten for the
+    polynomial (the cos branch's; the sin branch takes eight)."""
+    top = (hash_argument(x.cpu(), a, y.cpu() if isinstance(y, torch.Tensor) else y)
+           .view(torch.int32).long() >> 20) & 0x7FF
+    per = torch.where(top < TOP12_TINY, 0, torch.where(top < TOP12_PIO4, 11, torch.where(
+        top < TOP12_120, 15, torch.where(top < TOP12_INF, 13, 0))))
+    return int(per.sum()) + x.numel() * (1 if y is None else 2)
+
+
+def _sinf_times(x: torch.Tensor, a: float, y) -> dict:
+    """The kernel and its plain version (torch ops on the card) on one call's
+    arguments, beside the bound: bytes (4 B of x, 4 of a y tensor, 4 out an
+    element) at the HBM rate, and the float64 operations at the float64
+    peak. Device times with the calls queued behind a sleep (``queued_ms``:
+    a call of the kernel is shorter than the host's cost to issue it), and
+    back to back as the path issues them (``median_ms``), which is the
+    host's pace where it is the slower."""
+    n = x.numel()
+    nbytes = n * (8 if isinstance(y, torch.Tensor) else 4) + n * 4
+    ops = _sinf_ops(x, a, y)
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP64_FLOPS_PER_S * 1e3
+    return {"elements": n, "x_shape": list(x.shape), "x_stride": list(x.stride()),
+            "y": "tensor" if isinstance(y, torch.Tensor) else y,
+            "kernel_ms": queued_ms(lambda: hash_sinf(x, a, y)),
+            # Some 60 launches a call: 5 calls stay inside the launch queue.
+            "plain_ms": queued_ms(lambda: hash_sinf_plain(x, a, y), reps=5),
+            "kernel_ms_back_to_back": median_ms(lambda: hash_sinf(x, a, y)),
+            "host_us_per_call": host_us_per_call(lambda: hash_sinf(x, a, y)),
+            "bytes": nbytes, "float64_ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    return got.shape == want.shape and torch.equal(got.cpu().view(torch.int32),
+                                                   want.cpu().view(torch.int32))
+
+
+def phase_hash_sinf_check(dev) -> tuple[dict, dict]:
+    """The sin-hash kernel (csrc/hash_sinf.cu) against its plain version on
+    the CPU, bit for bit, then its times at a 32-env tick's shapes."""
+    g = torch.Generator().manual_seed(0)
+    bits = torch.randint(-2 ** 31, 2 ** 31, (SINF_RANDOM,), generator=g, dtype=torch.int64)
+    x = bits.to(torch.int32).view(torch.float32)
+    before = hash_sinf.launches
+    if not _same_bits(hash_sinf(x.to(dev), 1.0), hash_sinf_plain(x, 1.0)):
+        raise AssertionError("hash_sinf kernel differs from its plain version on random bits")
+    checked = {f"random_bits_{SINF_RANDOM}": SINF_RANDOM}
+    for name in hash_sets.SETS:
+        t = torch.from_numpy(hash_sets.argument_set(name))
+        if not _same_bits(hash_sets.port_hash(name, t.to(dev)), hash_sets.port_hash(name, t)):
+            raise AssertionError(f"hash_sinf kernel differs from its plain version on {name}")
+        checked[name] = t.shape[0]
+    torch.cuda.synchronize()
+    if hash_sinf.launches != before + 1 + len(hash_sets.SETS):
+        raise AssertionError(f"{hash_sinf.launches - before} launches for "
+                             f"{1 + len(hash_sets.SETS)} calls")
+    # A tick's shapes at 32 envs: the second rain hash over every pixel, and
+    # a grain hash of the quantized ground points.
+    gd = torch.Generator(device=dev).manual_seed(1)
+    H, W = FRAME_SHAPE[:2]
+    col = torch.floor(torch.rand((SINF_ENVS, H, W), generator=gd, device=dev) * 60.0) + 1234.0
+    q = torch.floor(torch.rand((SINF_ENVS, H * W, 2), generator=gd, device=dev) * 2e4 - 1e4)
+    passes = {"rain_pass": (col, 12.9898, 78.233),
+              "grain_pass": (q[..., 0], 12.9898, q[..., 1] * 78.233)}
+    times = {}
+    for name, (xs, a, y) in passes.items():
+        yc = y.cpu() if isinstance(y, torch.Tensor) else y
+        if not _same_bits(hash_sinf(xs, a, y), hash_sinf_plain(xs.cpu(), a, yc)):
+            raise AssertionError(f"hash_sinf kernel differs from its plain version at {name}")
+        times[name] = _sinf_times(xs, a, y)
+    line = {"phase": "hash_sinf_check", "ok": True, "bit_exact_elements": checked,
+            "max_abs_err": 0.0, "times": times}
+    emit(line)
+    grain = times["grain_pass"]
+    kernel = {"name": "hash_sinf", "route": "cuda", "source": "cilrs_tpu_torch/csrc/hash_sinf.cu",
+              "replaces": "no TPU kernel: XLA's float32 sin at cilrs_tpu/render/weather.py:73, "
+                          "cilrs_tpu/render/raster.py:251, cilrs_tpu/agent/driver.py:273",
+              "max_abs_err": 0.0, "ms": grain["kernel_ms"], "plain_ms": grain["plain_ms"],
+              "bound_ms": grain["bound_ms"], "bound_by": grain["bound_by"], "library_ms": None,
+              "timed_at": "grain_pass", "rain_pass_ms": times["rain_pass"]["kernel_ms"]}
+    return line, kernel
 
 
 def phase_cli(dev, workdir: str) -> tuple[dict, str]:
@@ -989,6 +1099,7 @@ def phase_collect_full_size(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     base_mem = torch.cuda.memory_allocated(dev)
     walls, issues, copies, kept = [], [], [], 0
+    hash_sinf.launches = 0
     for _ in range(SIM_TIMED_CHUNKS):
         t0 = time.perf_counter()
         outs = fleet.chunk()
@@ -1002,6 +1113,7 @@ def phase_collect_full_size(dev) -> dict:
         frames = host["frame"]
         if frames.shape != (E, T, 88, 200, 3) or not np.isfinite(host["control"]).all():
             raise AssertionError(f"chunk outputs: frames {frames.shape}")
+    sinf_launches = hash_sinf.launches
     peak = torch.cuda.max_memory_allocated(dev)
     wall = sum(walls)
     t0 = time.time()
@@ -1041,10 +1153,15 @@ def phase_collect_full_size(dev) -> dict:
             / (wall * 1e3),
             "profile_one_chunk": profile, "aten_calls_one_tick": aten_calls,
             "host_syncs_in_chunk": 0,
-            "gather_launches": k1, "mean_luminance_by_weather": strip}
+            "gather_launches": k1, "hash_sinf_launches": sinf_launches,
+            "hash_sinf_launches_per_tick": sinf_launches / (SIM_TIMED_CHUNKS * T),
+            "mean_luminance_by_weather": strip}
     emit(line)
     if k1 != 0:
         raise AssertionError(f"the collect path launched the gather kernel {k1} times")
+    if sinf_launches != SINF_CALLS_PER_TICK * SIM_TIMED_CHUNKS * T:
+        raise AssertionError(f"{sinf_launches} hash_sinf launches in "
+                             f"{SIM_TIMED_CHUNKS * T} collect ticks")
     if not strip["night"] < strip["clear"] - NIGHT_DARKER_BY:
         raise AssertionError(f"night {strip['night']} not darker than clear {strip['clear']}")
     return line
@@ -1167,6 +1284,7 @@ def phase_drive_full_size(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     base_mem = torch.cuda.memory_allocated(dev)
     walls, issues = [], []
+    hash_sinf.launches = 0
     for _ in range(DRIVE_TIMED_CHUNKS):
         t0 = time.perf_counter()
         outs = run.chunk()
@@ -1175,6 +1293,7 @@ def phase_drive_full_size(dev) -> dict:
         walls.append(time.perf_counter() - t0)
         if not torch.isfinite(outs["control"]).all():
             raise AssertionError("non-finite controls")
+    sinf_launches = hash_sinf.launches
     peak = torch.cuda.max_memory_allocated(dev)
     wall = sum(walls)
     ticks = DRIVE_TIMED_CHUNKS * T
@@ -1201,12 +1320,15 @@ def phase_drive_full_size(dev) -> dict:
             "peak_mem_bytes": peak, "peak_mem_above_start_bytes": peak - base_mem,
             "busy_share_unprofiled": profile.get("device_ms_per_tick", 0) * ticks / (wall * 1e3),
             "profile_one_chunk": profile, "aten_calls_one_tick": aten_calls,
-            "host_syncs_in_chunk": 0, "gather_launches": k1, "scoring_ms": scoring_ms,
+            "host_syncs_in_chunk": 0, "gather_launches": k1, "hash_sinf_launches": sinf_launches,
+            "hash_sinf_launches_per_tick": sinf_launches / ticks, "scoring_ms": scoring_ms,
             "scores_after_run": {k: scores[k] for k in ("overall", "total_distance_m",
                                                         "collisions", "teleports")}}
     emit(line)
     if k1 != 0:
         raise AssertionError(f"the drive path launched the gather kernel {k1} times")
+    if sinf_launches != SINF_CALLS_PER_TICK * ticks:
+        raise AssertionError(f"{sinf_launches} hash_sinf launches in {ticks} drive ticks")
     return line
 
 
@@ -1367,12 +1489,12 @@ def phase_fused_full_size(dev, workdir: str) -> tuple[dict, dict, str]:
                                  FUSED_SYNC_CALL, FUSED_PROFILE_CALL, FUSED_PER_CHUNK)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        gather_rows_paged.launches = 0
+        gather_rows_paged.launches = hash_sinf.launches = 0
         t0 = time.time()
         out = fused_cli.main(_fused_args(ckpt, hist_path, dev))
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = gather_rows_paged.launches
+        launches, sinf_launches = gather_rows_paged.launches, hash_sinf.launches
         peak = torch.cuda.max_memory_allocated(dev)
     finally:
         fused_mod.sample_batch = orig_sample
@@ -1421,7 +1543,8 @@ def phase_fused_full_size(dev, workdir: str) -> tuple[dict, dict, str]:
             "profile_one_collect_chunk": col["profile"], "profile_one_train_chunk": trn["profile"],
             "peak_mem_bytes": peak, "ring_bytes": FUSED_BUFFER * d,
             "history_last": hist[-1] if hist else None, "gather_launches": launches,
-            "expected_launches": out["train_steps"] + 1, "sampled_batch_vs_plain": sampled,
+            "expected_launches": out["train_steps"] + 1, "hash_sinf_launches": sinf_launches,
+            "sampled_batch_vs_plain": sampled,
             "gather": gathers, "host_syncs": {"collect": col["syncs"], "train": trn["syncs"]},
             "checkpoint_controls_finite": bool(torch.isfinite(ctl).all() and torch.isfinite(ps).all())}
     emit(line)  # the readings first, so a failed check still shows them
@@ -1430,6 +1553,8 @@ def phase_fused_full_size(dev, workdir: str) -> tuple[dict, dict, str]:
         raise AssertionError(f"history {hist}")
     if launches != out["train_steps"] + 1:
         raise AssertionError(f"{launches} gather launches, expected {out['train_steps'] + 1}")
+    if sinf_launches < 1:
+        raise AssertionError("the fused loop never launched the hash_sinf kernel")
     if sampled.get("max_abs_err") != 0.0:
         raise AssertionError(f"a sampled batch differs from the plain gather: {sampled}")
     if col["syncs"] or trn["syncs"] or col["syncs"] is None or trn["syncs"] is None:
@@ -1442,7 +1567,7 @@ def phase_fused_full_size(dev, workdir: str) -> tuple[dict, dict, str]:
                  "collect_chunk_ms": col["wall_ms"], "train_chunk_ms": trn["wall_ms"],
                  "peak_mem_bytes": peak, "wall_s": wall}
     return line, {"launches": launches, "max_abs_err": max(g["max_abs_err"] for g in gathers.values()),
-                  "fused_gathers": gathers}, ckpt, reference
+                  "fused_gathers": gathers, "hash_sinf_launches": sinf_launches}, ckpt, reference
 
 
 def phase_residuals_cli(dev, workdir: str, ckpt: str) -> dict:
@@ -1980,7 +2105,8 @@ def load_sessions_labels(session: str):
 
 # Phases that ``--phase NAME`` runs alone (switches_check runs them in a
 # process of their own, with its switches set).
-ALONE = {"switches_render": phase_switches_render, "drive_check": phase_drive_check}
+ALONE = {"switches_render": phase_switches_render, "drive_check": phase_drive_check,
+         "hash_sinf_check": phase_hash_sinf_check}
 
 
 def main(argv: list) -> int:
@@ -2003,6 +2129,8 @@ def main(argv: list) -> int:
     phase = "build_and_kernel_check"
     try:
         emit(phase_build_and_check(dev))
+        phase = "hash_sinf_check"
+        _, sinf_kernel = phase_hash_sinf_check(dev)
         with tempfile.TemporaryDirectory(prefix="cilrs_smoke_") as workdir:
             phase = "cli_report"
             line, ckpt = phase_cli(dev, workdir)
@@ -2063,9 +2191,21 @@ def main(argv: list) -> int:
         kernel["launches"] = sum(kernel["launches_by_path"].values())
         kernel["max_abs_err"] = max(kernel["max_abs_err"], train_kernel.pop("max_abs_err"),
                                     fused_kernel.pop("max_abs_err"))
+        sinf_kernel["launches_by_path"] = {
+            "collect_full_size": collect_line["hash_sinf_launches"],
+            "drive_full_size": drive_line["hash_sinf_launches"],
+            "fused_full_size": fused_kernel.pop("hash_sinf_launches")}
+        sinf_kernel["launches"] = sum(sinf_kernel["launches_by_path"].values())
+        sinf_kernel["launches_per_tick"] = {
+            "collect": collect_line["hash_sinf_launches_per_tick"],
+            "drive": drive_line["hash_sinf_launches_per_tick"]}
+        # Every kernel a tick launches, under the profiler.
+        sinf_kernel["tick_device_activities"] = {
+            "collect": collect_line["profile_one_chunk"].get("device_activities_per_tick"),
+            "drive": drive_line["profile_one_chunk"].get("device_activities_per_tick")}
         kernel.update(train_kernel)
         kernel.update(fused_kernel)
-        emit({"kernels": [kernel]})
+        emit({"kernels": [kernel, sinf_kernel]})
         print(card_line(), flush=True)
     except Exception as e:  # a failed phase ends the run: report it, no ok line
         traceback.print_exc()

@@ -8,8 +8,10 @@ collisions, teleports, route switching and metrics (``env_act``). The JAX
 package ``vmap``s one env's step and
 ``lax.scan``s it; here every tensor carries the env dimension E and
 ``fleet_rollout`` is a Python loop over ticks whose outputs stay on the device,
-stacked [E, T, ...], until the caller copies them out once a chunk. No step of
-a tick reads the device from the host, so the host only issues work.
+stacked [E, T, ...], until the caller copies them out once a chunk; JAX's
+one-env ``env_step`` and its ``lax.scan``, ``rollout``, are ``fleet_rollout``.
+No step of a tick reads the device from the host, so the host only issues
+work.
 
 Recovery semantics preserved from the reference:
  - collision recovery: brake 6 ticks -> reverse 40 ticks -> brake 6 ticks;
@@ -52,6 +54,7 @@ from cilrs_tpu_torch.evaluation.metrics import Metrics, init_metrics, update_met
 from cilrs_tpu_torch.maps.network import LIGHT_RED, RoadNetwork, light_state_ages, light_states
 from cilrs_tpu_torch.maps.routing import RoutePool, get_command, is_complete, localize, steer_hint
 from cilrs_tpu_torch.ops.image import normalize
+from cilrs_tpu_torch.ops.sinf import hash_sinf
 from cilrs_tpu_torch.render.camera import CameraSpec
 from cilrs_tpu_torch.render.raster import CAMERA, render_frame
 
@@ -169,6 +172,15 @@ def _set_ego(x: torch.Tensor, ego: torch.Tensor) -> torch.Tensor:
     return torch.cat([ego.unsqueeze(1).to(x.dtype), x[:, 1:]], dim=1)
 
 
+def reverse_steer(rec_start: torch.Tensor) -> torch.Tensor:
+    """The recovery's pseudo-random reverse steer in [-0.3, 0.3), stable per
+    episode: a sin hash of its start time. The hash takes glibc's ``sinf``, as
+    JAX's jitted sin does on the CPU: a float32 sin that is off by one ulp
+    wraps the fraction on 3% of starts and reverses with the opposite steer."""
+    rseed = hash_sinf(rec_start, 12.99) * 43758.5
+    return ((rseed - torch.floor(rseed)) - 0.5) * 0.6
+
+
 def env_act(
     state: DriverState,
     obs: dict,
@@ -250,9 +262,7 @@ def env_act(
     rec_done = (rec_mode == REC_BRAKE2) & (rec_el > REC_TOTAL_S)
     rec_mode = torch.where(rec_done, REC_NONE, rec_mode)
     rec_active = rec_mode != REC_NONE
-    # Pseudo-random reverse steer, stable per recovery episode.
-    rseed = torch.sin(rec_start * 12.99) * 43758.5
-    rsteer = ((rseed - torch.floor(rseed)) - 0.5) * 0.6
+    rsteer = reverse_steer(rec_start)
     reversing = rec_mode == REC_REVERSE
     rec_control = torch.stack([torch.where(reversing, rsteer, 0.0),
                                torch.where(reversing, 0.5, 0.0),

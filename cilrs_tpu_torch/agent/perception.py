@@ -8,25 +8,22 @@ Reproduces the reference's three per-frame checks:
    |lateral| <= 2.5 m, over vehicles AND walkers;
  - off-road when > 3.5 m from the nearest waypoint.
 Every function takes the fleet: positions [E, 2], yaws [E], light states [E, L].
+The thresholds come from ``cfg`` (``config.ObstacleConfig``,
+``config.TrafficLightConfig``; ``configs/weather.json`` through their loaders),
+with the JAX package's defaults.
 """
 
 from __future__ import annotations
 
 import torch
 
+from cilrs_tpu_torch.config import ObstacleConfig, TrafficLightConfig
 from cilrs_tpu_torch.core.geometry import const, heading_vec
 from cilrs_tpu_torch.core.state import WorldState
 from cilrs_tpu_torch.maps.network import LIGHT_NONE, LIGHT_RED, RoadNetwork
 from cilrs_tpu_torch.maps.queries import OFF_ROAD_DIST, nearest_waypoint
 
 NO_OBSTACLE = 999.0
-# The reference's obstacle corridor and traffic-light gating.
-LATERAL_THRESHOLD_M = 2.5
-FORWARD_DOT_THRESHOLD = 0.5
-MAX_DETECTION_RANGE_M = 20.0
-MIN_DETECTION_RANGE_M = 0.5
-MAX_OBEY_DISTANCE_M = 15.0
-HEADING_DOT_THRESHOLD = 0.3
 RED_AHEAD_DIST = 40.0  # m — queue-aware red-light lookahead
 PREDICT_HORIZONS = (0.0, 0.6, 1.2)  # s — crossing-traffic anticipation
 
@@ -47,6 +44,7 @@ def check_traffic_light(
     light_state: torch.Tensor,  # [E, L]
     pos: torch.Tensor,  # [E, 2]
     yaw: torch.Tensor,  # [E]
+    cfg: TrafficLightConfig = TrafficLightConfig(),
 ):
     """State (0 G / 1 Y / 2 R / 3 NONE) of each ego's governing light and its
     index (-1 none), both [E] int64.
@@ -62,9 +60,9 @@ def check_traffic_light(
     to_light, align, lon, lat = _approach(net, pos, yaw)
     dist = torch.sqrt(torch.sum(to_light * to_light, dim=-1) + 1e-9)
     relevant = (
-        (lon >= -MAX_OBEY_DISTANCE_M) & (lon <= 1.0)
+        (lon >= -cfg.max_obey_distance_m) & (lon <= 1.0)
         & (lat <= 3.0)
-        & (align >= HEADING_DOT_THRESHOLD)
+        & (align >= cfg.heading_dot_threshold)
     )
     d = torch.where(relevant, dist, torch.inf)
     idx = torch.argmin(d, dim=1, keepdim=True)
@@ -79,6 +77,7 @@ def red_light_ahead(
     light_state: torch.Tensor,  # [E, L]
     pos: torch.Tensor,  # [E, 2]
     yaw: torch.Tensor,  # [E]
+    cfg: TrafficLightConfig = TrafficLightConfig(),
 ) -> torch.Tensor:
     """[E] True if the ego lane's next light within RED_AHEAD_DIST ahead is
     RED: is the queue it is in light-bound (the drive mode's escalation hold)."""
@@ -88,13 +87,14 @@ def red_light_ahead(
     relevant = (
         (lon >= -RED_AHEAD_DIST) & (lon <= 1.0)
         & (lat <= 3.0)
-        & (align >= HEADING_DOT_THRESHOLD)
+        & (align >= cfg.heading_dot_threshold)
     )
     return (relevant & (light_state == LIGHT_RED)).any(dim=1)
 
 
 def get_obstacle_distance(
     world: WorldState,
+    cfg: ObstacleConfig = ObstacleConfig(),
     horizons: tuple = PREDICT_HORIZONS,
 ) -> torch.Tensor:
     """[E] distance to the nearest actor in each ego's forward corridor (else
@@ -118,10 +118,10 @@ def get_obstacle_distance(
         lateral = rel[..., 1] * f[..., 0] - rel[..., 0] * f[..., 1]  # cross(fwd, rel)
         ok = (
             alive[:, None]
-            & (dist > MIN_DETECTION_RANGE_M)
-            & (dist <= MAX_DETECTION_RANGE_M)
-            & (fdot > FORWARD_DOT_THRESHOLD)
-            & (lateral.abs() <= LATERAL_THRESHOLD_M)
+            & (dist > cfg.min_detection_range_m)
+            & (dist <= cfg.max_detection_range_m)
+            & (fdot > cfg.forward_dot_threshold)
+            & (lateral.abs() <= cfg.lateral_threshold_m)
         )
         return torch.where(ok, dist, NO_OBSTACLE).flatten(1).amin(dim=1)
 

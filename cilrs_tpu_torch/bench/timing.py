@@ -40,6 +40,40 @@ def median_ms(fn, reps: int = 20, rounds: int = 7, warmup: int = 3) -> float:
     return float(np.median(per_call))
 
 
+def queued_ms(fn, reps: int = 20, rounds: int = 7, warmup: int = 3) -> float:
+    """Device time of one call of fn when the host issues calls slower than
+    the card runs them (a kernel of a few microseconds): the stream first
+    sleeps on the card for twice the host's time to issue ``reps`` calls,
+    so every call is queued before the first runs and the events time them
+    back to back on the device alone. The median of ``rounds``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    # The card's sleep rate, cycles a millisecond, from one timed sleep.
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(1_000_000)
+    end.record()
+    end.synchronize()
+    cycles = int(2 * issue_ms * 1_000_000 / start.elapsed_time(end)) + 1
+    per_call = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / reps)
+    return float(np.median(per_call))
+
+
 def host_us_per_call(fn, calls: int = 1000, batch: int = 200) -> float:
     """Host time to issue one call of fn, in microseconds: a host clock over
     ``calls`` calls queued back to back. The clock stops before the

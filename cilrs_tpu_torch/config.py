@@ -54,6 +54,27 @@ class WeatherTable:
 
 
 @dataclasses.dataclass(frozen=True)
+class ObstacleConfig:
+    """The obstacle corridor (``agent/perception.py:get_obstacle_distance``).
+    The two actor-cache fields are the reference's and read by nothing: every
+    actor is scanned every frame."""
+    lateral_threshold_m: float = 2.5
+    forward_dot_threshold: float = 0.5
+    max_detection_range_m: float = 20.0
+    min_detection_range_m: float = 0.5
+    actor_cache_refresh_frames: int = 5
+    actor_cache_radius_m: float = 25.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrafficLightConfig:
+    """The light gating (``agent/perception.py:check_traffic_light``,
+    ``red_light_ahead``)."""
+    max_obey_distance_m: float = 15.0
+    heading_dot_threshold: float = 0.3
+
+
+@dataclasses.dataclass(frozen=True)
 class ScoringConfig:
     collision_penalty: float = 15.0
     red_light_violation_penalty: float = 10.0
@@ -154,6 +175,14 @@ def load_weather_table(path: str | None = None, device="cpu") -> WeatherTable:
         return torch.tensor(vals, dtype=torch.float32, device=device)
 
     return WeatherTable(**{f.name: col(f.name) for f in dataclasses.fields(WeatherTable)})
+
+
+def load_obstacle_config(path: str | None = None) -> ObstacleConfig:
+    return _sub(ObstacleConfig, load_weather_config(path).get("obstacle_detection", {}))
+
+
+def load_traffic_light_config(path: str | None = None) -> TrafficLightConfig:
+    return _sub(TrafficLightConfig, load_weather_config(path).get("traffic_light", {}))
 
 
 def load_scoring_config(path: str | None = None) -> ScoringConfig:

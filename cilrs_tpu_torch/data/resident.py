@@ -15,7 +15,8 @@ own, and ``labels_dataset`` is the host-label view the split and sampler use.
 fleet (port of ``cilrs_tpu/data/resident.py:collect_resident``): no frame
 crosses to the host, only the labels do (the split, the sampler, the session
 CSV). Label hygiene is ``data/collect.py``'s: stationary frames and recovery
-or teleport frames never enter the table.
+or teleport frames never enter the table. JAX's ``make_fleet`` is
+``data/collect.py:make_collect_fleet``, which ``collect_resident`` calls.
 """
 
 from __future__ import annotations

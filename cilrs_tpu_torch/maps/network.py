@@ -6,7 +6,8 @@ arrays so every query (nearest waypoint, on-road test, route localization) is
 a dense gather/argmin over the fleet. The builder is numpy, copied from the JAX
 package so that both build identical arrays from one graph; ``RoadNetwork``
 holds them as tensors on one device, and ``host`` keeps the numpy arrays that
-host code (routing, spawning) reads.
+host code (routing, spawning) reads (JAX's ``host_arrays(net)``: here every
+network carries them).
 
 By default every light runs on one town-global clock. The JAX package's
 switch ``CILRS_TPU_STAGGER_LIGHTS=1`` (unless ``CILRS_TPU_GLOBAL_LIGHTS=1``)

@@ -3,7 +3,8 @@
 
 Dense argmin/gather over the flat waypoint arrays, for points [..., 2] of any
 leading shape (one per env in the simulator). ``torch.argmin`` returns the
-first minimum, as ``jnp.argmin`` does.
+first minimum, as ``jnp.argmin`` does. JAX's ``lane_half_width()`` is
+``maps.network.LANE_WIDTH / 2`` here.
 """
 
 from __future__ import annotations

@@ -4,8 +4,9 @@
 Host side: Dijkstra over the directed waypoint graph (the native engine of
 ``native/roadgraph.cpp`` when it builds, else the same search in Python),
 emitting fixed-length routes as numpy arrays named as the ``Route`` fields
-(``core.convert.pool_from_arrays`` stacks the envs' pools onto the device).
-The host code is the JAX package's numpy, so one seed traces the same routes
+(``core.convert.pool_from_arrays`` stacks the envs' pools onto the device;
+JAX's ``stack_routes`` is the ``np.stack`` of a pool's routes in
+``chained_route_pool``). The host code is the JAX package's numpy, so one seed traces the same routes
 in both packages.
 
 Device side, batched over envs (a route pool per env, ``[E, K, R, ...]``):

@@ -20,8 +20,9 @@ Numerics follow the JAX function where they decide what a pixel shows:
    sort, which breaks distance ties toward the lower index as
    ``jax.lax.top_k`` does (the set matters: the dash cadence is idx % 3, and
    the maps' symmetric layouts tie distances exactly);
- - the hashes of the ground grain and the rain streaks compute sin's
-   argument as XLA's fused multiply-add does (``weather.hash_sin``).
+ - the hashes of the ground grain and the rain streaks take glibc's
+   ``sinf`` of an argument rounded as XLA's fused multiply-add rounds it
+   (``ops/sinf.py:hash_sinf``), as jitted ``jnp.sin`` does on XLA:CPU.
 
 The JAX package's opt-in switches, read when the module is imported and off
 by default (the measured-best render): ``CILRS_TPU_LAMPS=1`` lights a braking
@@ -42,6 +43,7 @@ import torch
 from cilrs_tpu_torch.core.geometry import const, take
 from cilrs_tpu_torch.core.state import WorldState
 from cilrs_tpu_torch.maps.network import RoadNetwork
+from cilrs_tpu_torch.ops.sinf import hash_sinf
 from cilrs_tpu_torch.render import weather as wx
 from cilrs_tpu_torch.render.camera import CameraSpec, camera_position, pixel_coords, ray_directions
 
@@ -210,9 +212,11 @@ def _motion_stretch(pxy: torch.Tensor, yaw: torch.Tensor, speed_ms: torch.Tensor
 
 
 def _hash2(p: torch.Tensor, cell: float) -> torch.Tensor:
-    """Per-cell value noise in [0,1): hash of the quantized world-space point."""
-    q = torch.floor(p / cell)
-    v = wx.hash_sin(q[..., 0], 12.9898, q[..., 1] * 78.233) * 43758.5453
+    """Per-cell value noise in [0,1): hash of the quantized world-space point.
+    The cell's division is a product with its float32 reciprocal, as XLA's jit
+    computes ``p / cell``; a cell one rounding apart hashes to another value."""
+    q = torch.floor(p * float(np.float32(1.0) / np.float32(cell)))
+    v = hash_sinf(q[..., 0], 12.9898, q[..., 1] * 78.233) * 43758.5453
     return v - torch.floor(v)
 
 

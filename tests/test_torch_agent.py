@@ -19,6 +19,8 @@ of their scale (XLA fuses multiply-adds, torch rounds each product):
 """
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import pytest
@@ -169,6 +171,66 @@ def test_perception_matches_jax(nets, worlds, name):
             np.testing.assert_allclose(g, w, **DIST_TOL)
     g = got[0].numpy()
     assert len(np.unique(g)) > 1  # the scene exercises both outcomes
+
+
+# Non-default thresholds, written into a copy of configs/weather.json.
+PERCEPTION_CFG = {"obstacle_detection": {"lateral_threshold_m": 1.5, "forward_dot_threshold": 0.8,
+                                         "max_detection_range_m": 12.0,
+                                         "min_detection_range_m": 1.5},
+                  "traffic_light": {"max_obey_distance_m": 8.0, "heading_dot_threshold": 0.99}}
+PERCEPTION_WITH_CFG = {
+    "check_traffic_light": (
+        lambda net, w, ls, oc, lc: jp.check_traffic_light(net, ls, w.ego_pos, w.ego_yaw, cfg=lc,
+                                                          return_index=True),
+        lambda net, w, ls, oc, lc: tp.check_traffic_light(net, ls, w.ego_pos, w.ego_yaw, cfg=lc)),
+    "red_light_ahead": (
+        lambda net, w, ls, oc, lc: jp.red_light_ahead(net, ls, w.ego_pos, w.ego_yaw, cfg=lc),
+        lambda net, w, ls, oc, lc: tp.red_light_ahead(net, ls, w.ego_pos, w.ego_yaw, cfg=lc)),
+    "obstacle_distance_teacher": (
+        lambda net, w, ls, oc, lc: jp.get_obstacle_distance(w, cfg=oc, horizons=(0.0,)),
+        lambda net, w, ls, oc, lc: tp.get_obstacle_distance(w, cfg=oc, horizons=(0.0,))),
+    "obstacle_distance_predictive": (
+        lambda net, w, ls, oc, lc: jp.get_obstacle_distance(w, cfg=oc),
+        lambda net, w, ls, oc, lc: tp.get_obstacle_distance(w, cfg=oc)),
+}
+
+
+@pytest.mark.parametrize("name", list(PERCEPTION_WITH_CFG))
+def test_perception_config_matches_jax(nets, worlds, name, tmp_path):
+    """The thresholds read through ``load_obstacle_config`` and
+    ``load_traffic_light_config`` from a copy of configs/weather.json with
+    non-default values: the same configs as JAX's loaders read, and the same
+    perception under them; they change what the fleet perceives."""
+    with open(os.path.join(os.path.dirname(jc.__file__), "..", "configs", "weather.json")) as f:
+        raw = json.load(f)
+    for section, values in PERCEPTION_CFG.items():
+        raw[section].update(values)
+    path = str(tmp_path / "weather.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    joc, jlc = jc.load_obstacle_config(path), jc.load_traffic_light_config(path)
+    toc, tlc = tc.load_obstacle_config(path), tc.load_traffic_light_config(path)
+    asdict = dataclasses.asdict
+    assert asdict(toc) == asdict(joc) != asdict(tc.ObstacleConfig())
+    assert asdict(tlc) == asdict(jlc) != asdict(tc.TrafficLightConfig())
+    assert asdict(tc.load_obstacle_config()) == asdict(tc.ObstacleConfig())
+    jnet, tnet = nets
+    jw, tw = worlds
+    jfn, tfn = PERCEPTION_WITH_CFG[name]
+    want = jax.jit(jax.vmap(lambda w: jfn(jnet, w, jn.light_states(jnet, w.time_s), joc, jlc)))(jw)
+    ls = tn.light_states(tnet, tw.time_s)
+    got = tfn(tnet, tw, ls, toc, tlc)
+    default = tfn(tnet, tw, ls, tc.ObstacleConfig(), tc.TrafficLightConfig())
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    default = default if isinstance(default, tuple) else (default,)
+    for g, w in zip(got, want):
+        g, w = g.numpy(), np.asarray(w)
+        if w.dtype.kind in "biu":
+            np.testing.assert_array_equal(g, w.astype(g.dtype))
+        else:
+            np.testing.assert_allclose(g, w, **DIST_TOL)
+    assert (got[0] != default[0]).any()
 
 
 def test_npc_controller_matches_jax(nets, worlds):
@@ -364,6 +426,35 @@ def test_fleet_rollout_matches_jax(nets, scenario):
         assert np.asarray(want["status"] == jctl.ST_RECOVERY).any()
     else:
         assert (moved > 2.0).all()  # from a standstill, 2.5 s
+
+
+def test_recovery_reverse_steer_matches_jax(nets):
+    """The recovery block's reverse steer in one collect tick of each
+    package, every env reversing from its own start: the starts whose hash
+    fraction lies nearest a wrap (where one ulp of sin flips the steer from
+    -0.3 to 0.3) and two others, from 0.05-1,200 s. The steer is exact."""
+    jnet, tnet = nets
+    starts = np.arange(1, 24_000, dtype=np.float32) * np.float32(0.05)
+    rseed = np.asarray(jax.jit(lambda t: jnp.sin(t * 12.99) * 43758.5)(starts))
+    frac = rseed - np.floor(rseed)
+    pick = np.concatenate([np.argsort(np.minimum(frac, 1.0 - frac))[:6], [0, 12_345]])
+    pools, states = _fleet(jnet, "traffic", E=len(pick))
+    states = [s.replace(recovery_mode=jnp.asarray(jd.REC_REVERSE, jnp.int32),
+                        recovery_start=jnp.asarray(starts[i]),
+                        world=s.world.replace(time_s=jnp.asarray(starts[i] + np.float32(1.0))))
+              for s, i in zip(states, pick)]
+    wt, params = jc.load_weather_table(), j_params()
+    _, want = jax.jit(jax.vmap(lambda s, p: jd.rollout(
+        s, 1, jnet, p, wt, params, None, mode="collect")))(stack(states), stack(pools))
+    _, got = td.fleet_rollout(
+        driver_state_from_arrays([tree_np(s) for s in states]), 1, tnet,
+        pool_from_arrays([tree_np(p) for p in pools]), tc.load_weather_table(), t_params(),
+        torch.from_numpy(_jax_draws(stack(states).world.rng, 1, 2)))
+    want_steer = np.asarray(want["control"])[:, 0, 0]
+    assert (np.asarray(want["status"]) == jctl.ST_RECOVERY).all()
+    assert (np.abs(want_steer[:6]) > 0.29).all()  # at a wrap
+    np.testing.assert_array_equal(got["control"][:, 0, 0].numpy(), want_steer)
+    np.testing.assert_array_equal(got["status"].numpy(), np.asarray(want["status"]))
 
 
 def test_drive_mode_runs(nets):

@@ -16,12 +16,14 @@ torch = pytest.importorskip("torch")
 from cilrs_tpu_torch import config as tc  # noqa: E402
 from cilrs_tpu_torch.agent.driver import fleet_rollout  # noqa: E402
 from cilrs_tpu_torch.agent.npc import draw_pedestrians  # noqa: E402
+from cilrs_tpu_torch.bench import hash_sets  # noqa: E402
 from cilrs_tpu_torch.data.collect import make_collect_fleet  # noqa: E402
 from cilrs_tpu_torch.data.dataset import make_synthetic_dataset  # noqa: E402
 from cilrs_tpu_torch.data.resident import labels_dataset, ship_resident  # noqa: E402
 from cilrs_tpu_torch.maps.town import make_mini_town  # noqa: E402
 from cilrs_tpu_torch.ops import gather as tg  # noqa: E402
 from cilrs_tpu_torch.ops import image as timg  # noqa: E402
+from cilrs_tpu_torch.ops import sinf as tsinf  # noqa: E402
 from cilrs_tpu_torch.train.loop import train  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -115,6 +117,41 @@ def test_gather_kernel_rejects_unaligned_rows(cuda_device):
     table = torch.zeros((8, 45), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError, match="16"):
         tg.gather_rows(table, torch.zeros(2, dtype=torch.int32, device=cuda_device))
+
+
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    return got.shape == want.shape and torch.equal(got.cpu().view(torch.int32),
+                                                   want.cpu().view(torch.int32))
+
+
+@pytest.mark.parametrize("name", hash_sets.SETS)
+def test_hash_sinf_kernel_matches_plain(cuda_device, name):
+    """The kernel against the plain version on each hash set, bit for bit
+    (the plain version is held to jitted jnp.sin in tests/test_torch_sinf.py);
+    one launch a call."""
+    t = torch.from_numpy(hash_sets.argument_set(name))
+    before = tsinf.hash_sinf.launches
+    got = hash_sets.port_hash(name, t.to(cuda_device))
+    torch.cuda.synchronize()
+    assert tsinf.hash_sinf.launches == before + 1
+    assert got.device.type == "cuda" and _same_bits(got, hash_sets.port_hash(name, t))
+
+
+def test_hash_sinf_kernel_on_every_exponent(cuda_device):
+    """4M random bit patterns (every exponent, infinities and NaNs among
+    them), strided x and y, each argument form, an empty tensor."""
+    g = torch.Generator().manual_seed(0)
+    bits = torch.randint(-2 ** 31, 2 ** 31, (2 ** 22,), generator=g, dtype=torch.int64)
+    x = bits.to(torch.int32).view(torch.float32)
+    assert _same_bits(tsinf.hash_sinf(x.to(cuda_device), 1.0), tsinf.hash_sinf_plain(x, 1.0))
+    q = torch.floor(torch.rand((32, 17_600, 2), generator=g) * 2e5 - 1e5)
+    qc = q.to(cuda_device)
+    for y, yc in ((None, None), (78.233, 78.233), (q[..., 1], qc[..., 1]),
+                  (q[..., 1] * 78.233, qc[..., 1] * 78.233)):
+        assert _same_bits(tsinf.hash_sinf(qc[..., 0], 12.9898, yc),
+                          tsinf.hash_sinf_plain(q[..., 0], 12.9898, y))
+    empty = tsinf.hash_sinf(torch.empty(0, 3, device=cuda_device), 1.0)
+    assert empty.shape == (0, 3) and empty.device.type == "cuda"
 
 
 def test_ship_resident_on_card_matches_cpu(cuda_device):

@@ -21,19 +21,19 @@ Tolerances:
    digit the session CSV prints), at most 0.5% of the u8 frame values off by
    more than 1;
  - the sharded fused loop against ``fused_collect_train(mesh=make_mesh(2))``
-   on JAX's draws: every rank's picks, frames collected and steps exact.
-   Run a second time with JAX's frames written into the port's rings (each
-   collect chunk's frames replaced by the ones JAX's shard wrote), it is
-   held to tests/test_torch_fused.py's history tolerances: the held-out
-   losses 1e-2 relative, the brake and speed terms 5e-3, the last batch's
-   plain loss 1e-1; measured at most 2.4e-3 (raw_val_steer), 1.3e-3 on
-   val_steer. On its own frames, the held-out losses and their steer and
-   throttle terms are held to 2e-2 relative: the same run differs from
-   JAX's by 1.64e-2 on raw_val_steer and 1.03e-2 on val_steer, so what the
-   second run removes, the renderers' 1-LSB differences
-   (tests/test_torch_render.py), is what the wider bound covers. A rank's
-   batch is 8 frames of one env, not 16 of two, which at the random init
-   carries those differences further than tests/test_torch_fused.py's run;
+   on JAX's draws: every rank's picks, frames collected and steps exact;
+   the held-out losses and their steer and throttle terms within 5e-3
+   relative, the brake and speed terms 5e-3 absolute (measured at most
+   2.8e-3, raw_val_steer). Run a second time with JAX's frames written into
+   the port's rings (each collect chunk's frames replaced by the ones JAX's
+   shard wrote), the same bounds hold (measured 2.4e-3) and the last
+   batch's plain loss is held to 2e-2 relative (measured 1.1e-2). On its
+   own frames that plain loss is held to 1e-1 (measured 5.4e-2): the rain
+   env's rank renders its streak columns a row apart from JAX's on 1-6% of
+   the values, because at this 64-pixel width the JAX program takes the
+   columns' phase hash with other roundings than at the package's widths
+   (tests/test_torch_sinf.py, tests/test_torch_resident.py), and a rank's
+   8-frame batch carries that into its loss;
  - the data-parallel train step at world 2 against world 1, at dropout 0
    and at dropout 0.5 (the masks are the global batch's, so the same):
    tests/test_parallel.py's bounds, the loss within 5e-3 relative and the
@@ -116,10 +116,10 @@ LOOP = dict(num_envs=2, num_vehicles=3, num_pedestrians=1, buffer_frames=512, co
 LOOP_P, SEED = 1, 0
 ROLL_TOL = {"control": 1e-6, "speed_kmh": 1e-3, "pos": 1e-3, "yaw": 1e-3}
 FRAME_MAX_SHARE = 0.005
-LOSS_TOL = dict(rtol=2e-2, atol=0)
-SAME_FRAMES_LOSS_TOL = dict(rtol=1e-2, atol=0)
+LOSS_TOL = dict(rtol=5e-3, atol=0)
 HISTORY_TOL = {"val_brake": dict(rtol=0, atol=5e-3), "val_speed": dict(rtol=0, atol=5e-3),
                "train_loss": dict(rtol=1e-1, atol=0)}
+SAME_FRAMES_HISTORY_TOL = {**HISTORY_TOL, "train_loss": dict(rtol=2e-2, atol=0)}
 DP_LOSS_RTOL, DP_PARAM_ATOL = 5e-3, 5e-4
 DP_STAT_TOL = dict(atol=1e-5, rtol=1e-4)
 DP_VAL_RTOL = 0.03
@@ -566,7 +566,7 @@ def test_sharded_rollout_matches_jax(ranks):
 # --------------------------------------------------------------------------
 
 
-def _check_fused(ranks, run: str, loss_tol: dict):
+def _check_fused(ranks, run: str, history_tol: dict):
     want, got, inputs = ranks
     want = want["fused"]
     for rank, r in enumerate(got):
@@ -583,21 +583,21 @@ def _check_fused(ranks, run: str, loss_tol: dict):
             assert (h["step"], h["frames"]) == (w["step"], w["frames"])
             for k in w:
                 if k not in ("step", "frames", "time_s"):
-                    np.testing.assert_allclose(h[k], w[k], **HISTORY_TOL.get(k, loss_tol), err_msg=k)
+                    np.testing.assert_allclose(h[k], w[k], **history_tol.get(k, LOSS_TOL), err_msg=k)
 
 
 def test_sharded_fused_loop_matches_jax(ranks):
-    _check_fused(ranks, "fused", LOSS_TOL)
+    _check_fused(ranks, "fused", HISTORY_TOL)
 
 
 def test_sharded_fused_loop_on_jax_frames_matches_jax(ranks):
     """The same run with JAX's frames in the port's rings: what is left is
-    the train step's own difference, inside tests/test_torch_fused.py's
-    tolerances."""
+    the train step's own difference, the held-out losses within 5e-3 and
+    the last batch's plain loss within 2e-2."""
     _, got, inputs = ranks
     for r in got:
         assert r["fused_jax_frames"]["jax_chunks"] == len(inputs["fused"]["frames"][0]) > 0
-    _check_fused(ranks, "fused_jax_frames", SAME_FRAMES_LOSS_TOL)
+    _check_fused(ranks, "fused_jax_frames", SAME_FRAMES_HISTORY_TOL)
 
 
 def test_sharded_fused_loop_keeps_the_ranks_identical(ranks):

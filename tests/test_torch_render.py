@@ -13,10 +13,11 @@ Tolerances, from what the renderer's numerics allow:
  - the frame: at most 0.5% of the values differ by more than 0.05, and the
    mean difference is under 1e-3. 0.05 is the bound of the hash noise: the
    ground grain adds at most 0.025 (``raster.py:402-407``), so one hash value
-   against any other differs by at most 0.05 before light and fog dim it; the
-   grain's hash argument reaches 1e5, where one rounding step of sin's
-   argument or result moves the value by up to that. Rain streaks (a hash
-   too, ``weather.py:71-74``) and edge pixels are the rest of the 0.5%.
+   against any other differs by at most 0.05 before light and fog dim it.
+   The grain and rain hashes themselves agree bit for bit
+   (tests/test_torch_sinf.py), so a grain cell differs only where the ground
+   point itself does; edge pixels are the rest of the 0.5%. Measured: no
+   value off by more than 1e-3 in either town.
 """
 
 import dataclasses
@@ -201,29 +202,6 @@ def test_chase_frame_with_the_ego_matches_jax(scene):
     without = tr.render_frame(tnet, tworld, tn.light_states(tnet, tworld.time_s),
                               tcam.CHASE_CAMERA).numpy()
     assert np.abs(without - got).max() > 0.1
-
-
-RAIN_HASH_ARGS = 200_000
-SIN_GAP_MAX_SHARE = 0.02
-
-
-def test_rain_hash_sin_gap_is_pinned():
-    """The rain streaks' phase hash, sin(x * 12.9898 + 78.233) over integer
-    columns x: ``hash_sin`` rounds the argument as XLA's FMA does (exactly,
-    against numpy in float64) and takes sin correctly rounded, where jitted
-    ``jnp.sin`` is glibc's sinf. The share of arguments where the two
-    differ is the known parity gap (ROADMAP Queue 3, 1.3% measured); a change
-    that widens it past SIN_GAP_MAX_SHARE fails here, and it never exceeds
-    one ulp."""
-    x = np.arange(RAIN_HASH_ARGS, dtype=np.float32)
-    a, y = np.float32(12.9898), np.float32(78.233)
-    want = np.asarray(jax.jit(lambda v: jnp.sin(v * 12.9898 + 78.233))(x))
-    got = tw.hash_sin(torch.from_numpy(x), 12.9898, torch.full((len(x),), 78.233)).numpy()
-    arg = (x.astype(np.float64) * a + y).astype(np.float32)
-    np.testing.assert_array_equal(got, np.sin(arg.astype(np.float64)).astype(np.float32))
-    differ = got != want
-    assert 0 < differ.mean() < SIN_GAP_MAX_SHARE, differ.mean()
-    assert np.abs(got - want).max() <= np.spacing(np.float32(1.0))
 
 
 def test_render_night_darker_than_clear(scene):

@@ -20,10 +20,14 @@ table's frames: the clear env's rows as the collect tests hold them (at most
 0.5% of the u8 values off by more than 1), and all rows within the
 renderer's bounds (tests/test_torch_render.py: values off by more than 0.05
 of the range, mean difference under 1e-3 of it) but with a 1% share. The
-rain env's rows need it: a streak column's phase is a sin hash, XLA's sin
-differs from the correctly rounded one by an ulp on some arguments, and that
-turns whole streak columns on or off (0.4-0.7% of the values here; ROADMAP
-Queue 3). The session CSVs to
+rain env's rows need it, and not for the sin hashes, which the port computes
+as XLA does (ops/sinf.py): at this 64-pixel width the JAX program takes the
+streak columns' phase, a hash of constants, with the argument rounded twice
+and sin correctly rounded (tests/test_torch_sinf.py pins it), and a column
+whose phase differs draws its streaks a row apart. Measured: 0.43%, 0.43%
+and 0.73% of the values off by more than 0.05 (one page; two pages), the
+rain env's rows 2.4-2.8% off by more than 1; with the port's phase computed
+as that program computes it, 2e-5, 0 and 0. The session CSVs to
 print precision (one unit of the last printed digit) but the wall-clock
 timestamp, and summary.txt equal but its wall-time and rate lines.
 """

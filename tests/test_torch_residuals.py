@@ -5,11 +5,12 @@ residual analysis.
  - ``collect_with_privileged`` on the mini town (3 envs: clear, rain, fog),
    the port on JAX's pedestrian draws (keys ``PRNGKey(seed*31+e)``, one
    split a tick): commands, light states and weathers exact, controls within
-   1e-6, speeds and obstacle distances within 1e-4, frames as
-   tests/test_torch_resident.py holds a table (the clear env's rows at most
-   0.5% of the u8 values off by more than 1; all rows at most 1% off by more
-   than 0.05 of the range, mean difference under 1e-3 of it: the rain
-   streaks' sin hash, ROADMAP Queue 3);
+   1e-6, speeds and obstacle distances within 1e-4, frames of every
+   weather as the collect tests hold a clear frame: at most 0.5% of the u8
+   values off by more than 1, mean difference under 1e-3 of the range (the
+   rain streaks' and the grain's sin hashes agree bit for bit,
+   tests/test_torch_sinf.py; measured: 1e-5 of the values off by more than
+   1, in the fog env);
  - ``predict`` from the same weights (a (1, 1, 1, 1) trunk, JAX's in
    float32 as the port runs on the CPU) on the same frames, with a batch
    that pads the tail: the tolerances of tests/test_torch_model.py, controls
@@ -47,8 +48,7 @@ from cilrs_tpu_torch.train.checkpoint import BEST_NAME, save_checkpoint_pth  # n
 E, V, P, T, SEED, N = 3, 3, 1, 10, 5, 60
 TOL = {"control": 1e-6, "speed_kmh": 1e-4, "obstacle_dist": 1e-4}
 EXACT = ("command", "tl_state", "weather")
-CLEAR_MAX_SHARE = 0.005
-FRAME_ATOL, FRAME_MAX_SHARE, FRAME_MAX_MEAN = 0.05 * 255, 0.01, 1e-3 * 255
+FRAME_MAX_SHARE, FRAME_MAX_MEAN = 0.005, 1e-3 * 255
 TINY = (1, 1, 1, 1)
 J_MODEL = JCILRS(dropout=0.0, dtype=jnp.float32, stage_sizes=TINY, speed_skip=True)
 J_CREATE_TRAIN_STATE = jstate.create_train_state
@@ -103,10 +103,8 @@ def test_collect_with_privileged_matches_jax(collected):
     for k, tol in TOL.items():
         np.testing.assert_allclose(got[k], want[k], atol=tol, rtol=0, err_msg=k)
     d = np.abs(got["frame"].astype(int) - want["frame"].astype(int))
-    clear = got["weather"] == 0
-    assert clear.any() and (got["weather"] == 1).any()
-    assert (d[clear] > 1).mean() <= CLEAR_MAX_SHARE
-    assert (d > FRAME_ATOL).mean() <= FRAME_MAX_SHARE and d.mean() <= FRAME_MAX_MEAN
+    assert (got["weather"] == 0).any() and (got["weather"] == 1).any()  # clear and rain
+    assert (d > 1).mean() <= FRAME_MAX_SHARE and d.mean() <= FRAME_MAX_MEAN
 
 
 def _breakdown_inputs(n, seed):

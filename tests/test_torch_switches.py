@@ -24,7 +24,9 @@ but for at most 1% of them. The crossing is a bf16 [pixels x 8] pass (the
 port rounds after every bf16 operation, as torch does); the lamp bands are
 edges of the box solve. Measured: 373 added pixels in each package (297 of
 paint, 60 of brake lamps), none differing, and no frame value off by more
-than 0.05.
+than 0.05. The switched tables' frames: at most 0.5% of the values off by
+more than 0.05 (tests/test_torch_resident.py allows 1%; measured here 0.36%
+to 0.43%).
 """
 
 import dataclasses
@@ -79,7 +81,10 @@ RES_FRAMES, RES_LIMIT = 160, 120 * D + 1
 RES_TOL = {"speed": 1e-6, "controls": 1e-6, "speed_kmh": 1e-4, "pos": 1e-4, "yaw": 1e-4,
            "obstacle_dist": 1e-4}
 RES_EXACT = ("command", "tl_state", "env", "tick")
-FRAME_ATOL, RES_FRAME_MAX_SHARE, RES_FRAME_MAX_MEAN = 0.05 * 255, 0.01, 1e-3 * 255
+# The tables' frames: the rain env's streak phase, which the JAX program at
+# this width takes otherwise (tests/test_torch_resident.py), leaves 0.36-0.43%
+# of the values off by more than 0.05 of the range.
+FRAME_ATOL, RES_FRAME_MAX_SHARE, RES_FRAME_MAX_MEAN = 0.05 * 255, 0.005, 1e-3 * 255
 
 
 @pytest.fixture(autouse=True)
