@@ -13,12 +13,16 @@ end to end at the full width of the repo's model (CILRS, ResNet-34 trunk,
      shared-memory ring) against its plain version, bit-exact, on u8 and f32
      tables, one and two pages, repeated and out-of-range indices, and a
      single page past 2^31 bytes; ptxas's registers and shared memory;
-     then hash_sinf_check: the sin-hash kernel (glibc's sinf of a hash
-     argument) against its plain version on the CPU, bit for bit, on 4M
-     random bit patterns and the rain, grain, recovery and random hash sets
-     (``bench/hash_sets.py``), and its times at a 32-env tick's rain and
-     grain passes beside the plain version and the bound; its launches a
-     tick are counted in 8 and 11 (five a tick) and on 14's run;
+     then hash_sinf_check: the sin-hash kernels (glibc's sinf of a hash
+     argument) against their plain versions on the CPU, bit for bit: the
+     bare sin on 4M random bit patterns and the rain, grain, recovery and
+     random hash sets (``bench/hash_sets.py``), and each fused hash (rain
+     columns, ground grain, reverse steer; one launch a hash) on its set and
+     at a 32-env tick's shape; their times there beside the plain version,
+     the unfused composition (the bare sin and the torch epilogue) and the
+     bound;
+     their launches a tick are counted in 8 and 11 (four a tick: two rain,
+     one grain, one steer) and on 14's run;
   2. the normal entry point: a synthetic session on disk and a .pth policy go
      through ``python -m cilrs_tpu_torch.cli.report``'s main();
   3. train_cli: the same session trained for 2 epochs through ``python -m
@@ -122,6 +126,7 @@ run with a non-zero exit and no ok line; so does a machine without CUDA.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -174,8 +179,9 @@ from cilrs_tpu_torch.ops.build import build
 from cilrs_tpu_torch.ops.gather import (bulk_plan, gather_rows_paged, gather_rows_plain,
                                         paged_layout)
 from cilrs_tpu_torch.ops.image import apply_augment, draw_augment, normalize
-from cilrs_tpu_torch.ops.sinf import (TOP12_120, TOP12_INF, TOP12_PIO4, TOP12_TINY, hash_argument,
-                                      hash_sinf, hash_sinf_plain)
+from cilrs_tpu_torch.ops import sinf as sinf_mod
+from cilrs_tpu_torch.ops.sinf import (SIN_HASHES, TOP12_120, TOP12_INF, TOP12_PIO4, TOP12_TINY,
+                                      hash_argument, hash_sinf, hash_sinf_plain)
 from cilrs_tpu_torch.parallel.fleet import make_sharded_rollout
 from cilrs_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from cilrs_tpu_torch.render import raster as raster_mod
@@ -333,15 +339,17 @@ RENDER_HASH_BOUND, RENDER_MAX_SHARE, RENDER_MAX_MEAN = 0.05, 0.005, 1e-3
 BIG_PAGE_ROWS = 2 ** 33 // ROW_BYTES + 5_000  # 8.85 GB, one page
 SWITCH_TIMEOUT_S = 300
 
-# hash_sinf_check: the sin-hash kernel against its plain version on the CPU,
-# bit for bit, on 4M random bit patterns (every exponent, infinities and
-# NaNs) and the hash sets; timed at a 32-env tick's rain pass (x [32, 88,
-# 200], a scalar y) and grain pass (x a column of [32, 17,600, 2] read in
-# place, y [32, 17,600]).
+# hash_sinf_check: the sin-hash kernels against their plain versions on the
+# CPU, bit for bit: the bare sin on 4M random bit patterns (every exponent,
+# infinities and NaNs) and the hash sets, timed at a 32-env tick's rain pass
+# (x [32, 88, 200], a scalar y) and grain pass (x a column of [32, 17,600, 2]
+# read in place, y [32, 17,600]); each fused hash on its set and at a 32-env
+# tick's shape (rain x [32, 88, 200], grain points [32, 17,600, 2], steer
+# [32]), timed there.
 SINF_RANDOM, SINF_ENVS = 1 << 22, 32
-# Calls of hash_sinf a simulator tick: the renderer's two rain and two grain
-# hashes, the recovery machine's reverse steer.
-SINF_CALLS_PER_TICK = 5
+# Launches of each sin-hash kernel a simulator tick: the renderer's two rain
+# hashes and its grain, the recovery machine's reverse steer.
+SINF_LAUNCHES_PER_TICK = {"hash_sinf": 0, "hash01": 2, "grain_texture": 1, "reverse_steer": 1}
 # Float64 peak of an H100 SXM outside the tensor cores (NVIDIA's data sheet).
 FP64_FLOPS_PER_S = 34e12
 
@@ -381,10 +389,15 @@ def _gather_times(pages, idx: torch.Tensor, page_rows: int) -> dict:
     err = kernel_vs_plain(pages, idx, page_rows)
     kernel_ms = median_ms(functools.partial(gather_rows_paged, pages, idx, page_rows))
     bound_ms = copy_bound_ms(len(idx) * row_bytes)
+    index_select = functools.partial(torch.index_select, pages[0], 0, idx.long() % page_rows)
     return {"rows": len(idx), "kernel_ms": kernel_ms,
             "plain_ms": median_ms(lambda: gather_rows_plain(pages, idx, page_rows)),
-            "index_select_ms": median_ms(functools.partial(torch.index_select, pages[0], 0,
-                                                           idx.long() % page_rows)),
+            "index_select_ms": median_ms(index_select),
+            # Queued behind a sleep: the card's time alone, where a call at
+            # few rows may be shorter than the host's time to issue it.
+            "kernel_ms_queued": queued_ms(functools.partial(gather_rows_paged, pages, idx,
+                                                            page_rows)),
+            "index_select_ms_queued": queued_ms(index_select),
             "bound_ms": bound_ms, "kernel_ms_over_bound_ms": kernel_ms / bound_ms,
             "max_abs_err": err}
 
@@ -437,31 +450,38 @@ def phase_build_and_check(dev) -> dict:
                           torch.cuda.get_device_properties(dev).multi_processor_count)))}
 
 
-def _sinf_ops(x: torch.Tensor, a: float, y) -> int:
-    """The float64 operations the kernel does on these arguments: the
-    argument's product (and sum), then by the range of |argument| the
-    reduction's (2^-12 and below: none; under 0.75: x*x; under 120: five;
-    larger: three, besides integer work not counted) and ten for the
-    polynomial (the cos branch's; the sin branch takes eight)."""
-    top = (hash_argument(x.cpu(), a, y.cpu() if isinstance(y, torch.Tensor) else y)
-           .view(torch.int32).long() >> 20) & 0x7FF
+def _sin_ops(arg: torch.Tensor) -> int:
+    """The float64 operations glibc's sinf does on these float32 arguments:
+    by the range of |argument| the reduction's (2^-12 and below: none; under
+    0.75: x*x; under 120: five; larger: three, besides integer work not
+    counted) and ten for the polynomial (the cos branch's; the sin branch
+    takes eight)."""
+    top = (arg.cpu().view(torch.int32).long() >> 20) & 0x7FF
     per = torch.where(top < TOP12_TINY, 0, torch.where(top < TOP12_PIO4, 11, torch.where(
         top < TOP12_120, 15, torch.where(top < TOP12_INF, 13, 0))))
-    return int(per.sum()) + x.numel() * (1 if y is None else 2)
+    return int(per.sum())
+
+
+def _bound(nbytes: int, ops: int) -> dict:
+    """The least time for the work: bytes at the HBM rate, float64 operations
+    at the float64 peak, the larger of the two."""
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP64_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "float64_ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def _sinf_times(x: torch.Tensor, a: float, y) -> dict:
-    """The kernel and its plain version (torch ops on the card) on one call's
-    arguments, beside the bound: bytes (4 B of x, 4 of a y tensor, 4 out an
-    element) at the HBM rate, and the float64 operations at the float64
-    peak. Device times with the calls queued behind a sleep (``queued_ms``:
-    a call of the kernel is shorter than the host's cost to issue it), and
-    back to back as the path issues them (``median_ms``), which is the
-    host's pace where it is the slower."""
+    """The bare kernel and its plain version (torch ops on the card) on one
+    call's arguments, beside the bound: bytes (4 B of x, 4 of a y tensor, 4
+    out an element) at the HBM rate, and the float64 operations (the
+    argument's product and sum, then the sin's) at the float64 peak. Device
+    times with the calls queued behind a sleep (``queued_ms``: a call of the
+    kernel is shorter than the host's cost to issue it), and back to back as
+    the path issues them (``median_ms``), which is the host's pace where it
+    is the slower."""
     n = x.numel()
-    nbytes = n * (8 if isinstance(y, torch.Tensor) else 4) + n * 4
-    ops = _sinf_ops(x, a, y)
-    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP64_FLOPS_PER_S * 1e3
+    yc = y.cpu() if isinstance(y, torch.Tensor) else y
+    ops = _sin_ops(hash_argument(x.cpu(), a, yc)) + n * (1 if y is None else 2)
     return {"elements": n, "x_shape": list(x.shape), "x_stride": list(x.stride()),
             "y": "tensor" if isinstance(y, torch.Tensor) else y,
             "kernel_ms": queued_ms(lambda: hash_sinf(x, a, y)),
@@ -469,8 +489,69 @@ def _sinf_times(x: torch.Tensor, a: float, y) -> dict:
             "plain_ms": queued_ms(lambda: hash_sinf_plain(x, a, y), reps=5),
             "kernel_ms_back_to_back": median_ms(lambda: hash_sinf(x, a, y)),
             "host_us_per_call": host_us_per_call(lambda: hash_sinf(x, a, y)),
-            "bytes": nbytes, "float64_ops": ops, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            **_bound(n * (8 if isinstance(y, torch.Tensor) else 4) + n * 4, ops)}
+
+
+@contextlib.contextmanager
+def _sin_in_torch_ops():
+    """The fused hashes' plain versions with their sin in torch ops too
+    (``hash_sinf_plain`` in place of the bare kernel they call), for timing
+    the plain version on the card; outside this, on a CUDA tensor they run
+    the unfused composition: the bare kernel and the torch epilogue."""
+    bare = sinf_mod.hash_sinf
+    sinf_mod.hash_sinf = hash_sinf_plain
+    try:
+        yield
+    finally:
+        sinf_mod.hash_sinf = bare
+
+
+# Each fused hash: its entry point, its plain version, and its float64 work
+# and bytes on an input: (the float32 arguments its sins take, float64
+# operations besides the sins, bytes read and written).
+def _hash01_work(x):
+    n = x.numel()
+    return [hash_argument(x, sinf_mod.HASH_A, sinf_mod.HASH_C)], 2 * n, 8 * n
+
+
+def _grain_work(sxy):
+    args = []
+    for cell in sinf_mod.GRAIN_CELLS:
+        q = torch.floor(sxy * sinf_mod.cell_reciprocal(cell))
+        args.append(hash_argument(q[..., 0], sinf_mod.HASH_A, q[..., 1] * sinf_mod.HASH_C))
+    n = sxy.numel() // 2
+    return args, 6 * n, 12 * n  # two arguments' product and sum, then the weighted sum
+
+
+def _steer_work(x):
+    return [hash_argument(x, sinf_mod.STEER_A, None)], 0, 8 * x.numel()
+
+
+FUSED_HASHES = {
+    "hash01": (lambda x: sinf_mod.hash01(x, sinf_mod.HASH_A, sinf_mod.HASH_C, sinf_mod.HASH_SCALE),
+               lambda x: sinf_mod.hash01_plain(x, sinf_mod.HASH_A, sinf_mod.HASH_C,
+                                               sinf_mod.HASH_SCALE), _hash01_work),
+    "grain_texture": (sinf_mod.grain_texture, sinf_mod.grain_texture_plain, _grain_work),
+    "reverse_steer": (sinf_mod.reverse_steer, sinf_mod.reverse_steer_plain, _steer_work),
+}
+
+
+def _fused_hash_times(name: str, x: torch.Tensor) -> dict:
+    """A fused hash at one call's input: the kernel (queued behind a sleep,
+    and back to back), the unfused composition (the bare kernel and the torch
+    epilogue, some 4-21 launches) and the plain version in torch ops alone,
+    queued; beside the bound."""
+    fn, plain, work = FUSED_HASHES[name]
+    args, extra_ops, nbytes = work(x.cpu())
+    times = {"elements": x.numel() // (2 if name == "grain_texture" else 1),
+             "x_shape": list(x.shape),
+             "kernel_ms": queued_ms(lambda: fn(x)),
+             "composition_ms": queued_ms(lambda: plain(x), reps=10),
+             "kernel_ms_back_to_back": median_ms(lambda: fn(x)),
+             "host_us_per_call": host_us_per_call(lambda: fn(x))}
+    with _sin_in_torch_ops():
+        times["plain_ms"] = queued_ms(lambda: plain(x), reps=3)
+    return {**times, **_bound(nbytes, sum(_sin_ops(a) for a in args) + extra_ops)}
 
 
 def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
@@ -478,31 +559,74 @@ def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
                                                    want.cpu().view(torch.int32))
 
 
+def sinf_launches() -> dict:
+    """Launches of each sin-hash kernel since the counts were last reset."""
+    return {fn.__name__: fn.launches for fn in SIN_HASHES}
+
+
+def reset_sinf_launches():
+    for fn in SIN_HASHES:
+        fn.launches = 0
+
+
+def check_sinf_launches(counts: dict, ticks: int, path: str):
+    want = {name: per * ticks for name, per in SINF_LAUNCHES_PER_TICK.items()}
+    if counts != want:
+        raise AssertionError(f"sin-hash launches in {ticks} {path} ticks: {counts}, "
+                             f"expected {want}")
+
+
+def _grain_points(q: np.ndarray) -> np.ndarray:
+    """Points of the grain set's cells, moved inside them, at both sizes."""
+    inside = np.random.default_rng(2).uniform(0.0, 1.0, q.shape)
+    return np.concatenate([((q + inside) * np.float32(cell)).astype(np.float32)
+                           for cell in sinf_mod.GRAIN_CELLS])
+
+
 def phase_hash_sinf_check(dev) -> tuple[dict, dict]:
-    """The sin-hash kernel (csrc/hash_sinf.cu) against its plain version on
-    the CPU, bit for bit, then its times at a 32-env tick's shapes."""
+    """The sin-hash kernels (csrc/hash_sinf.cu) against their plain versions
+    on the CPU, bit for bit, then their times at a 32-env tick's shapes."""
     g = torch.Generator().manual_seed(0)
     bits = torch.randint(-2 ** 31, 2 ** 31, (SINF_RANDOM,), generator=g, dtype=torch.int64)
     x = bits.to(torch.int32).view(torch.float32)
-    before = hash_sinf.launches
+    before = sinf_launches()
     if not _same_bits(hash_sinf(x.to(dev), 1.0), hash_sinf_plain(x, 1.0)):
         raise AssertionError("hash_sinf kernel differs from its plain version on random bits")
     checked = {f"random_bits_{SINF_RANDOM}": SINF_RANDOM}
-    for name in hash_sets.SETS:
-        t = torch.from_numpy(hash_sets.argument_set(name))
+    sets = {name: torch.from_numpy(hash_sets.argument_set(name)) for name in hash_sets.SETS}
+    for name, t in sets.items():
         if not _same_bits(hash_sets.port_hash(name, t.to(dev)), hash_sets.port_hash(name, t)):
             raise AssertionError(f"hash_sinf kernel differs from its plain version on {name}")
         checked[name] = t.shape[0]
-    torch.cuda.synchronize()
-    if hash_sinf.launches != before + 1 + len(hash_sets.SETS):
-        raise AssertionError(f"{hash_sinf.launches - before} launches for "
-                             f"{1 + len(hash_sets.SETS)} calls")
-    # A tick's shapes at 32 envs: the second rain hash over every pixel, and
-    # a grain hash of the quantized ground points.
+    # Each fused hash on its set: the rain columns, the grain's cells as
+    # points, the recovery starts.
+    fused_sets = {"hash01": sets["rain"],
+                  "grain_texture": torch.from_numpy(_grain_points(sets["grain"].numpy())),
+                  "reverse_steer": sets["recovery"]}
+    # And at a 32-env tick's shapes, from the card's generator: streak columns
+    # plus a time offset, ground points of Town01's extent, recovery starts.
     gd = torch.Generator(device=dev).manual_seed(1)
     H, W = FRAME_SHAPE[:2]
-    col = torch.floor(torch.rand((SINF_ENVS, H, W), generator=gd, device=dev) * 60.0) + 1234.0
-    q = torch.floor(torch.rand((SINF_ENVS, H * W, 2), generator=gd, device=dev) * 2e4 - 1e4)
+    E = SINF_ENVS
+    rand = lambda *shape: torch.rand(shape, generator=gd, device=dev)
+    tick = {"hash01": torch.floor(rand(1, H, W) * 60.0) + torch.floor(rand(E, 1, 1) * 1.2e3 * 1.7),
+            "grain_texture": rand(E, H * W, 2) * 500.0 - 50.0,
+            "reverse_steer": rand(E) * 1.2e3}
+    for name, (fn, plain, _) in FUSED_HASHES.items():
+        for case, t in ((f"{name}_set", fused_sets[name]), (f"{name}_tick", tick[name])):
+            if not _same_bits(fn(t.to(dev)), plain(t.cpu())):
+                raise AssertionError(f"{name} kernel differs from its plain version at {case}")
+            checked[case] = t.numel() // (2 if name == "grain_texture" else 1)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in sinf_launches().items()}
+    want = {"hash_sinf": 1 + len(hash_sets.SETS), "hash01": 2, "grain_texture": 2,
+            "reverse_steer": 2}
+    if launched != want:
+        raise AssertionError(f"launches {launched} for calls {want}")
+    # The bare sin as the unfused hashes called it: the second rain hash over
+    # every pixel, and a grain hash of quantized ground points.
+    col = torch.floor(rand(E, H, W) * 60.0) + 1234.0
+    q = torch.floor(rand(E, H * W, 2) * 2e4 - 1e4)
     passes = {"rain_pass": (col, 12.9898, 78.233),
               "grain_pass": (q[..., 0], 12.9898, q[..., 1] * 78.233)}
     times = {}
@@ -511,16 +635,23 @@ def phase_hash_sinf_check(dev) -> tuple[dict, dict]:
         if not _same_bits(hash_sinf(xs, a, y), hash_sinf_plain(xs.cpu(), a, yc)):
             raise AssertionError(f"hash_sinf kernel differs from its plain version at {name}")
         times[name] = _sinf_times(xs, a, y)
+    for name in FUSED_HASHES:
+        times[name] = _fused_hash_times(name, tick[name])
     line = {"phase": "hash_sinf_check", "ok": True, "bit_exact_elements": checked,
             "max_abs_err": 0.0, "times": times}
     emit(line)
-    grain = times["grain_pass"]
+    grain = times["grain_texture"]
+    keys = ("kernel_ms", "composition_ms", "plain_ms", "kernel_ms_back_to_back", "bound_ms",
+            "bound_by")
     kernel = {"name": "hash_sinf", "route": "cuda", "source": "cilrs_tpu_torch/csrc/hash_sinf.cu",
-              "replaces": "no TPU kernel: XLA's float32 sin at cilrs_tpu/render/weather.py:73, "
-                          "cilrs_tpu/render/raster.py:251, cilrs_tpu/agent/driver.py:273",
+              "replaces": "no TPU kernel: XLA's float32 sin and the hashes around it at "
+                          "cilrs_tpu/render/weather.py:71-74, cilrs_tpu/render/raster.py:246-252 "
+                          "and :402, cilrs_tpu/agent/driver.py:273-274",
               "max_abs_err": 0.0, "ms": grain["kernel_ms"], "plain_ms": grain["plain_ms"],
               "bound_ms": grain["bound_ms"], "bound_by": grain["bound_by"], "library_ms": None,
-              "timed_at": "grain_pass", "rain_pass_ms": times["rain_pass"]["kernel_ms"]}
+              "timed_at": "grain_texture, 32 envs",
+              "modes": {name: {k: times[name][k] for k in keys} for name in FUSED_HASHES},
+              "bare_pass_ms": {name: times[name]["kernel_ms"] for name in passes}}
     return line, kernel
 
 
@@ -1099,7 +1230,7 @@ def phase_collect_full_size(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     base_mem = torch.cuda.memory_allocated(dev)
     walls, issues, copies, kept = [], [], [], 0
-    hash_sinf.launches = 0
+    reset_sinf_launches()
     for _ in range(SIM_TIMED_CHUNKS):
         t0 = time.perf_counter()
         outs = fleet.chunk()
@@ -1113,7 +1244,7 @@ def phase_collect_full_size(dev) -> dict:
         frames = host["frame"]
         if frames.shape != (E, T, 88, 200, 3) or not np.isfinite(host["control"]).all():
             raise AssertionError(f"chunk outputs: frames {frames.shape}")
-    sinf_launches = hash_sinf.launches
+    sinf_counts = sinf_launches()
     peak = torch.cuda.max_memory_allocated(dev)
     wall = sum(walls)
     t0 = time.time()
@@ -1153,15 +1284,13 @@ def phase_collect_full_size(dev) -> dict:
             / (wall * 1e3),
             "profile_one_chunk": profile, "aten_calls_one_tick": aten_calls,
             "host_syncs_in_chunk": 0,
-            "gather_launches": k1, "hash_sinf_launches": sinf_launches,
-            "hash_sinf_launches_per_tick": sinf_launches / (SIM_TIMED_CHUNKS * T),
+            "gather_launches": k1, "sin_hash_launches": sinf_counts,
+            "sin_hash_launches_per_tick": sum(sinf_counts.values()) / (SIM_TIMED_CHUNKS * T),
             "mean_luminance_by_weather": strip}
     emit(line)
     if k1 != 0:
         raise AssertionError(f"the collect path launched the gather kernel {k1} times")
-    if sinf_launches != SINF_CALLS_PER_TICK * SIM_TIMED_CHUNKS * T:
-        raise AssertionError(f"{sinf_launches} hash_sinf launches in "
-                             f"{SIM_TIMED_CHUNKS * T} collect ticks")
+    check_sinf_launches(sinf_counts, SIM_TIMED_CHUNKS * T, "collect")
     if not strip["night"] < strip["clear"] - NIGHT_DARKER_BY:
         raise AssertionError(f"night {strip['night']} not darker than clear {strip['clear']}")
     return line
@@ -1284,7 +1413,7 @@ def phase_drive_full_size(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     base_mem = torch.cuda.memory_allocated(dev)
     walls, issues = [], []
-    hash_sinf.launches = 0
+    reset_sinf_launches()
     for _ in range(DRIVE_TIMED_CHUNKS):
         t0 = time.perf_counter()
         outs = run.chunk()
@@ -1293,7 +1422,7 @@ def phase_drive_full_size(dev) -> dict:
         walls.append(time.perf_counter() - t0)
         if not torch.isfinite(outs["control"]).all():
             raise AssertionError("non-finite controls")
-    sinf_launches = hash_sinf.launches
+    sinf_counts = sinf_launches()
     peak = torch.cuda.max_memory_allocated(dev)
     wall = sum(walls)
     ticks = DRIVE_TIMED_CHUNKS * T
@@ -1320,15 +1449,15 @@ def phase_drive_full_size(dev) -> dict:
             "peak_mem_bytes": peak, "peak_mem_above_start_bytes": peak - base_mem,
             "busy_share_unprofiled": profile.get("device_ms_per_tick", 0) * ticks / (wall * 1e3),
             "profile_one_chunk": profile, "aten_calls_one_tick": aten_calls,
-            "host_syncs_in_chunk": 0, "gather_launches": k1, "hash_sinf_launches": sinf_launches,
-            "hash_sinf_launches_per_tick": sinf_launches / ticks, "scoring_ms": scoring_ms,
+            "host_syncs_in_chunk": 0, "gather_launches": k1, "sin_hash_launches": sinf_counts,
+            "sin_hash_launches_per_tick": sum(sinf_counts.values()) / ticks,
+            "scoring_ms": scoring_ms,
             "scores_after_run": {k: scores[k] for k in ("overall", "total_distance_m",
                                                         "collisions", "teleports")}}
     emit(line)
     if k1 != 0:
         raise AssertionError(f"the drive path launched the gather kernel {k1} times")
-    if sinf_launches != SINF_CALLS_PER_TICK * ticks:
-        raise AssertionError(f"{sinf_launches} hash_sinf launches in {ticks} drive ticks")
+    check_sinf_launches(sinf_counts, ticks, "drive")
     return line
 
 
@@ -1489,12 +1618,13 @@ def phase_fused_full_size(dev, workdir: str) -> tuple[dict, dict, str]:
                                  FUSED_SYNC_CALL, FUSED_PROFILE_CALL, FUSED_PER_CHUNK)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        gather_rows_paged.launches = hash_sinf.launches = 0
+        gather_rows_paged.launches = 0
+        reset_sinf_launches()
         t0 = time.time()
         out = fused_cli.main(_fused_args(ckpt, hist_path, dev))
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches, sinf_launches = gather_rows_paged.launches, hash_sinf.launches
+        launches, sinf_counts = gather_rows_paged.launches, sinf_launches()
         peak = torch.cuda.max_memory_allocated(dev)
     finally:
         fused_mod.sample_batch = orig_sample
@@ -1543,7 +1673,7 @@ def phase_fused_full_size(dev, workdir: str) -> tuple[dict, dict, str]:
             "profile_one_collect_chunk": col["profile"], "profile_one_train_chunk": trn["profile"],
             "peak_mem_bytes": peak, "ring_bytes": FUSED_BUFFER * d,
             "history_last": hist[-1] if hist else None, "gather_launches": launches,
-            "expected_launches": out["train_steps"] + 1, "hash_sinf_launches": sinf_launches,
+            "expected_launches": out["train_steps"] + 1, "sin_hash_launches": sinf_counts,
             "sampled_batch_vs_plain": sampled,
             "gather": gathers, "host_syncs": {"collect": col["syncs"], "train": trn["syncs"]},
             "checkpoint_controls_finite": bool(torch.isfinite(ctl).all() and torch.isfinite(ps).all())}
@@ -1553,8 +1683,8 @@ def phase_fused_full_size(dev, workdir: str) -> tuple[dict, dict, str]:
         raise AssertionError(f"history {hist}")
     if launches != out["train_steps"] + 1:
         raise AssertionError(f"{launches} gather launches, expected {out['train_steps'] + 1}")
-    if sinf_launches < 1:
-        raise AssertionError("the fused loop never launched the hash_sinf kernel")
+    if not all(sinf_counts[name] >= 1 for name, per in SINF_LAUNCHES_PER_TICK.items() if per):
+        raise AssertionError(f"the fused loop's sin-hash launches: {sinf_counts}")
     if sampled.get("max_abs_err") != 0.0:
         raise AssertionError(f"a sampled batch differs from the plain gather: {sampled}")
     if col["syncs"] or trn["syncs"] or col["syncs"] is None or trn["syncs"] is None:
@@ -1567,7 +1697,7 @@ def phase_fused_full_size(dev, workdir: str) -> tuple[dict, dict, str]:
                  "collect_chunk_ms": col["wall_ms"], "train_chunk_ms": trn["wall_ms"],
                  "peak_mem_bytes": peak, "wall_s": wall}
     return line, {"launches": launches, "max_abs_err": max(g["max_abs_err"] for g in gathers.values()),
-                  "fused_gathers": gathers, "hash_sinf_launches": sinf_launches}, ckpt, reference
+                  "fused_gathers": gathers, "sin_hash_launches": sinf_counts}, ckpt, reference
 
 
 def phase_residuals_cli(dev, workdir: str, ckpt: str) -> dict:
@@ -2191,14 +2321,18 @@ def main(argv: list) -> int:
         kernel["launches"] = sum(kernel["launches_by_path"].values())
         kernel["max_abs_err"] = max(kernel["max_abs_err"], train_kernel.pop("max_abs_err"),
                                     fused_kernel.pop("max_abs_err"))
-        sinf_kernel["launches_by_path"] = {
-            "collect_full_size": collect_line["hash_sinf_launches"],
-            "drive_full_size": drive_line["hash_sinf_launches"],
-            "fused_full_size": fused_kernel.pop("hash_sinf_launches")}
-        sinf_kernel["launches"] = sum(sinf_kernel["launches_by_path"].values())
+        # The source's kernels on the main paths, every mode: each path's
+        # counts by mode, and their sum.
+        by_path = {"collect_full_size": collect_line["sin_hash_launches"],
+                   "drive_full_size": drive_line["sin_hash_launches"],
+                   "fused_full_size": fused_kernel.pop("sin_hash_launches")}
+        sinf_kernel["launches_by_path"] = by_path
+        sinf_kernel["launches"] = sum(sum(c.values()) for c in by_path.values())
+        for name, mode in sinf_kernel["modes"].items():
+            mode["launches"] = sum(c[name] for c in by_path.values())
         sinf_kernel["launches_per_tick"] = {
-            "collect": collect_line["hash_sinf_launches_per_tick"],
-            "drive": drive_line["hash_sinf_launches_per_tick"]}
+            "collect": collect_line["sin_hash_launches_per_tick"],
+            "drive": drive_line["sin_hash_launches_per_tick"]}
         # Every kernel a tick launches, under the profiler.
         sinf_kernel["tick_device_activities"] = {
             "collect": collect_line["profile_one_chunk"].get("device_activities_per_tick"),

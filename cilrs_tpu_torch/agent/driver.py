@@ -54,7 +54,7 @@ from cilrs_tpu_torch.evaluation.metrics import Metrics, init_metrics, update_met
 from cilrs_tpu_torch.maps.network import LIGHT_RED, RoadNetwork, light_state_ages, light_states
 from cilrs_tpu_torch.maps.routing import RoutePool, get_command, is_complete, localize, steer_hint
 from cilrs_tpu_torch.ops.image import normalize
-from cilrs_tpu_torch.ops.sinf import hash_sinf
+from cilrs_tpu_torch.ops.sinf import reverse_steer
 from cilrs_tpu_torch.render.camera import CameraSpec
 from cilrs_tpu_torch.render.raster import CAMERA, render_frame
 
@@ -170,15 +170,6 @@ def env_observe(state: DriverState, net: RoadNetwork, pool: RoutePool,
 def _set_ego(x: torch.Tensor, ego: torch.Tensor) -> torch.Tensor:
     """x [E, V, ...] with vehicle 0 replaced by ego [E, ...]."""
     return torch.cat([ego.unsqueeze(1).to(x.dtype), x[:, 1:]], dim=1)
-
-
-def reverse_steer(rec_start: torch.Tensor) -> torch.Tensor:
-    """The recovery's pseudo-random reverse steer in [-0.3, 0.3), stable per
-    episode: a sin hash of its start time. The hash takes glibc's ``sinf``, as
-    JAX's jitted sin does on the CPU: a float32 sin that is off by one ulp
-    wraps the fraction on 3% of starts and reverses with the opposite steer."""
-    rseed = hash_sinf(rec_start, 12.99) * 43758.5
-    return ((rseed - torch.floor(rseed)) - 0.5) * 0.6
 
 
 def env_act(

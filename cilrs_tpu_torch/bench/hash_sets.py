@@ -2,14 +2,14 @@
 jitted ``jnp.sin`` in the CPU tests, the plain version on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 
-Each set is a float32 array, and ``port_hash(name, t)`` hashes it as the
-port's call site does:
+Each set is a float32 array, and ``port_hash(name, t)`` takes the bare sin
+(``hash_sinf``) of the argument the port's hash forms from it:
  - ``rain``: the streak columns' hash, sin(x * 12.9898 + 78.233), on the
    integers 0-199,999 (``render/weather.py:_hash01``);
  - ``grain``: the ground grain's cells [N, 2], sin(q0 * 12.9898 + q1 *
    78.233), recorded from the renderer on a Town01 frame of four envs at
    0-14 m/s, both cell sizes, the sky's non-finite cells dropped
-   (``render/raster.py:_hash2``);
+   (``ops/sinf.py:grain_hash``);
  - ``recovery``: the reverse steer's seed, sin(t * 12.99), on recovery
    starts t = 0.05-1,199.95 s in 0.05 s ticks (``agent/driver.py``);
  - ``random``: sin(x) on signed float32 values, log-uniform in magnitude
@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cilrs_tpu_torch.ops.sinf import hash_sinf
+from cilrs_tpu_torch.ops.sinf import GRAIN_CELLS, cell_reciprocal, hash_sinf
 
 SETS = ("rain", "grain", "recovery", "random")
 GRAIN_SPEEDS = (0.0, 3.0, 8.0, 14.0)  # m/s, one env each: the stretch moves the cells
@@ -44,8 +44,10 @@ def random_args() -> np.ndarray:
 
 
 def grain_args() -> np.ndarray:
-    """The grain's cells of one Town01 frame, quantized as ``raster._hash2``
-    quantizes them, recorded by wrapping it for one render on the CPU."""
+    """The grain's cells of one Town01 frame, quantized as
+    ``ops/sinf.py:grain_hash`` quantizes them at each cell size: the ground
+    points recorded by wrapping ``raster.grain_texture`` for one render on the
+    CPU."""
     from cilrs_tpu_torch.core.state import make_world
     from cilrs_tpu_torch.maps.network import light_states
     from cilrs_tpu_torch.maps.town import make_town01
@@ -59,19 +61,21 @@ def grain_args() -> np.ndarray:
     world.veh_pos[:, 0] = torch.from_numpy(np.asarray(h.wp_xy, np.float32)[wp])
     world.veh_yaw[:, 0] = torch.from_numpy(np.asarray(h.wp_yaw, np.float32)[wp])
     world.veh_speed[:, 0] = torch.tensor(GRAIN_SPEEDS)
-    cells = []
-    hash2 = raster._hash2
+    points = []
+    texture = raster.grain_texture
 
-    def record(p, cell):
-        cells.append(torch.floor(p * float(np.float32(1.0) / np.float32(cell))).reshape(-1, 2))
-        return hash2(p, cell)
+    def record(sxy):
+        points.append(sxy)
+        return texture(sxy)
 
-    raster._hash2 = record
+    raster.grain_texture = record
     try:
         raster.render_frame(net, world, light_states(net, world.time_s))
     finally:
-        raster._hash2 = hash2
-    q = torch.cat(cells).numpy()
+        raster.grain_texture = texture
+    (sxy,) = points
+    q = torch.cat([torch.floor(sxy * cell_reciprocal(cell)).reshape(-1, 2)
+                   for cell in GRAIN_CELLS]).numpy()
     return q[np.isfinite(q).all(axis=1)]
 
 

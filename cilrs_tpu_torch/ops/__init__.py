@@ -1,1 +1,1 @@
-"""Tensor ops: the row-gather kernel, its build, image normalization."""
+"""Tensor ops: the row-gather and sin-hash kernels, their build, image normalization."""

@@ -21,8 +21,9 @@ Numerics follow the JAX function where they decide what a pixel shows:
    ``jax.lax.top_k`` does (the set matters: the dash cadence is idx % 3, and
    the maps' symmetric layouts tie distances exactly);
  - the hashes of the ground grain and the rain streaks take glibc's
-   ``sinf`` of an argument rounded as XLA's fused multiply-add rounds it
-   (``ops/sinf.py:hash_sinf``), as jitted ``jnp.sin`` does on XLA:CPU.
+   ``sinf`` of an argument rounded as XLA's fused multiply-add rounds it, as
+   jitted ``jnp.sin`` does on XLA:CPU, and the grain's two scales are summed
+   as XLA contracts the sum (``ops/sinf.py:grain_texture``, ``hash01``).
 
 The JAX package's opt-in switches, read when the module is imported and off
 by default (the measured-best render): ``CILRS_TPU_LAMPS=1`` lights a braking
@@ -43,7 +44,7 @@ import torch
 from cilrs_tpu_torch.core.geometry import const, take
 from cilrs_tpu_torch.core.state import WorldState
 from cilrs_tpu_torch.maps.network import RoadNetwork
-from cilrs_tpu_torch.ops.sinf import hash_sinf
+from cilrs_tpu_torch.ops.sinf import grain_hash, grain_texture
 from cilrs_tpu_torch.render import weather as wx
 from cilrs_tpu_torch.render.camera import CameraSpec, camera_position, pixel_coords, ray_directions
 
@@ -211,13 +212,10 @@ def _motion_stretch(pxy: torch.Tensor, yaw: torch.Tensor, speed_ms: torch.Tensor
     return pxy + fwd[:, None, :] * (along * (1.0 / stretch - 1.0)[:, None])[..., None]
 
 
-def _hash2(p: torch.Tensor, cell: float) -> torch.Tensor:
-    """Per-cell value noise in [0,1): hash of the quantized world-space point.
-    The cell's division is a product with its float32 reciprocal, as XLA's jit
-    computes ``p / cell``; a cell one rounding apart hashes to another value."""
-    q = torch.floor(p * float(np.float32(1.0) / np.float32(cell)))
-    v = hash_sinf(q[..., 0], 12.9898, q[..., 1] * 78.233) * 43758.5453
-    return v - torch.floor(v)
+# The JAX renderer's per-cell value noise at one cell size (its ``_hash2``);
+# ``grain_texture`` computes both of the grain's sizes and their sum in one
+# kernel launch.
+_hash2 = grain_hash
 
 
 def _ray_obb(oz: float, d, center_xy, yaw, half_l, half_w, height, lamps: bool = False):
@@ -360,7 +358,7 @@ def render_frame(
     # point, stretched along motion.
     speed = world.ego_speed.abs()
     sxy = _motion_stretch(gxy, ego_yaw, speed)
-    tex = 0.6 * _hash2(sxy, 1.7) + 0.4 * _hash2(sxy, 0.45) - 0.5
+    tex = grain_texture(sxy)  # 0.6 * _hash2(sxy, 1.7) + 0.4 * _hash2(sxy, 0.45) - 0.5
     amp_v = torch.rsqrt(1.0 + 0.11 * speed)[:, None]
     amp = (0.035 * road + 0.05 * (1.0 - road)) * amp_v
     g = torch.clamp(g + (amp * tex)[..., None], 0.0, 1.0)

@@ -14,7 +14,7 @@ import torch
 
 from cilrs_tpu_torch.config import WEATHER_NAMES
 from cilrs_tpu_torch.core.geometry import const
-from cilrs_tpu_torch.ops.sinf import hash_sinf
+from cilrs_tpu_torch.ops.sinf import HASH_A, HASH_C, HASH_SCALE, hash01
 
 # Per-weather shader parameters, rows ordered like WEATHER_NAMES:
 #   clear, rain, fog, night, hardrain
@@ -88,9 +88,9 @@ def wet_darken(weather_idx: torch.Tensor, road_color: torch.Tensor) -> torch.Ten
 
 
 def _hash01(x: torch.Tensor) -> torch.Tensor:
-    """Cheap per-element hash -> [0, 1) float noise."""
-    h = hash_sinf(x, 12.9898, 78.233) * 43758.5453
-    return h - torch.floor(h)
+    """Cheap per-element hash -> [0, 1) float noise (one kernel launch on the
+    card, ``ops/sinf.py:hash01``)."""
+    return hash01(x, HASH_A, HASH_C, HASH_SCALE)
 
 
 def rain_streaks(

@@ -154,6 +154,79 @@ def test_hash_sinf_kernel_on_every_exponent(cuda_device):
     assert empty.shape == (0, 3) and empty.device.type == "cuda"
 
 
+# The fused sin hashes: the call, its plain version, the input's trailing
+# shape (the grain's points are pairs) and the output's shape at a 32-env
+# tick. Each entry point counts its launches on itself.
+SIN_HASH_ENTRY_POINTS = {
+    "hash01": (lambda x: tsinf.hash01(x, tsinf.HASH_A, tsinf.HASH_C, tsinf.HASH_SCALE),
+               lambda x: tsinf.hash01_plain(x, tsinf.HASH_A, tsinf.HASH_C, tsinf.HASH_SCALE),
+               (), (32, 88, 200)),
+    "grain_texture": (tsinf.grain_texture, tsinf.grain_texture_plain, (2,), (32, 17_600)),
+    "reverse_steer": (tsinf.reverse_steer, tsinf.reverse_steer_plain, (), (32,)),
+}
+
+
+def _launches(name: str) -> int:
+    return getattr(tsinf, name).launches
+
+
+def _sin_hash_inputs(name: str, n: int, g: torch.Generator) -> torch.Tensor:
+    """n elements of the hash's input, as a tick makes them: streak columns
+    plus a time offset, ground points up to 2 km away, recovery starts up to
+    1,200 s; with an infinity and a NaN among them where n allows."""
+    trail = SIN_HASH_ENTRY_POINTS[name][2]
+    u = torch.rand((n, *trail), generator=g)
+    if name == "hash01":
+        x = torch.floor(u * 60.0) + torch.floor(torch.rand(n, generator=g) * 2e3)
+    else:
+        x = u * 4e3 - 2e3 if name == "grain_texture" else u * 1.2e3
+    if n > 8:
+        x[3], x[7] = float("inf"), float("nan")
+    return x
+
+
+@pytest.mark.parametrize("name", SIN_HASH_ENTRY_POINTS)
+def test_sin_hash_kernels_match_plain(cuda_device, name):
+    """Each fused hash against its plain version on the CPU, bit for bit (NaN
+    as 0x7fc00000 on both): at a 32-env tick's shape, at n = 1, 3 and 1,001
+    (not whole groups of four), on views whose data start 4 and 8 B past a
+    16-B boundary (a scalar head; for the grain's pairs at 4 B, every point
+    scalar), and empty; one launch a call, none when empty."""
+    fn, plain, trail, tick = SIN_HASH_ENTRY_POINTS[name]
+    g = torch.Generator().manual_seed(5)
+    n_tick = int(np.prod(tick))
+    cases = {"tick": _sin_hash_inputs(name, n_tick, g).reshape(*tick, *trail)}
+    for n in (1, 3, 1001):
+        cases[f"n={n}"] = _sin_hash_inputs(name, n, g)
+    flat = _sin_hash_inputs(name, 4099, g).reshape(-1).to(cuda_device)
+    width = max(1, int(np.prod(trail)))
+    for skip in (1, 2):  # floats: 4 and 8 B past the allocation's alignment
+        m = (flat.numel() - skip) // width
+        cases[f"offset_{4 * skip}B"] = flat[skip:skip + m * width].view(m, *trail)
+    for case, x in cases.items():
+        xc = x.to(cuda_device)
+        before = _launches(name)
+        got = fn(xc)
+        torch.cuda.synchronize()
+        assert _launches(name) == before + 1, case
+        assert got.device.type == "cuda" and _same_bits(got, plain(x.cpu())), case
+    before = _launches(name)
+    empty = fn(torch.empty((0, *trail), device=cuda_device))
+    assert empty.shape == (0,) and empty.device.type == "cuda" and _launches(name) == before
+
+
+@pytest.mark.parametrize("name", SIN_HASH_ENTRY_POINTS)
+def test_sin_hash_kernels_refuse_strided_input(cuda_device, name):
+    """A strided input on the card raises and launches nothing (the plain
+    version never runs on a CUDA tensor)."""
+    fn, _, trail, _ = SIN_HASH_ENTRY_POINTS[name]
+    x = torch.zeros((8, 6, *trail), device=cuda_device)[:, :5]
+    before = _launches(name)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(x)
+    assert _launches(name) == before
+
+
 def test_ship_resident_on_card_matches_cpu(cuda_device):
     ds = make_synthetic_dataset(64, seed=3, h=32, w=64)
     idx = np.random.RandomState(4).permutation(64)

@@ -173,3 +173,83 @@ def test_streak_phase_as_the_jax_renderer_compiles_it(width):
     h = np.sin(arg.astype(np.float64)).astype(np.float32) * np.float32(43758.5453)
     _assert_bits_equal((h - np.floor(h)).astype(np.float32), want)
     assert 0 < (port != want).mean() < 0.5
+
+
+def _grain_points() -> np.ndarray:
+    """Points of the grain set's cells, moved inside them, at both cell sizes."""
+    q = hash_sets.grain_args()
+    inside = np.random.default_rng(2).uniform(0.0, 1.0, q.shape)
+    return np.concatenate([((q + inside) * np.float32(cell)).astype(np.float32)
+                           for cell in sinf.GRAIN_CELLS])
+
+
+def _jax_grain_texture(sxy):
+    """The JAX renderer's grain (``cilrs_tpu/render/raster.py:402``)."""
+    return 0.6 * jr._hash2(sxy, 1.7) + 0.4 * jr._hash2(sxy, 0.45) - 0.5
+
+
+def _jax_reverse_steer(rec_start):
+    """The JAX driver's reverse steer (``cilrs_tpu/agent/driver.py:273-274``)."""
+    rseed = jnp.sin(rec_start * 12.99) * 43758.5
+    return ((rseed - jnp.floor(rseed)) - 0.5) * 0.6
+
+
+# Each entry point's argument set, its JAX expression and the port's call.
+ENTRY_POINTS = {
+    "hash01": (hash_sets.rain_args, jw._hash01,
+               lambda t: sinf.hash01(t, sinf.HASH_A, sinf.HASH_C, sinf.HASH_SCALE)),
+    "reverse_steer": (hash_sets.recovery_args, _jax_reverse_steer, sinf.reverse_steer),
+    "grain_texture": (_grain_points, _jax_grain_texture, sinf.grain_texture),
+}
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_point_matches_jax(name):
+    """Each fused hash's entry point (its plain version on the CPU) against
+    jitted JAX on its set, bit for bit: the rain columns (``weather.py:73``),
+    the recovery starts (``driver.py:273-274``) and the grain's points
+    (``raster.py:246-252``, ``:402``). XLA contracts the grain's
+    ``0.6 * coarse + 0.4 * fine`` into a fused multiply-add; the port rounds
+    that sum once too."""
+    args, jax_fn, port_fn = ENTRY_POINTS[name]
+    x = args()
+    want = np.asarray(jax.jit(jax_fn)(x))
+    got = port_fn(torch.from_numpy(x))
+    assert sum(f.launches for f in sinf.SIN_HASHES) == 0  # the CPU runs no kernel
+    _assert_bits_equal(got.numpy(), want)
+
+
+def test_grain_texture_sum_is_contracted():
+    """The grain's sum as jitted XLA:CPU computes it: fl32(0.6 * coarse +
+    fl32(0.4 * fine)), one rounding, and not the three roundings the source
+    spells; the two differ in the last bit on a share of the points, which
+    the port reproduces."""
+    x = _grain_points()
+    t = torch.from_numpy(x)
+    coarse, fine = (sinf.grain_hash(t, cell) for cell in sinf.GRAIN_CELLS)
+    three_roundings = (0.6 * coarse + 0.4 * fine - 0.5).numpy()
+    want = np.asarray(jax.jit(_jax_grain_texture)(x))
+    assert 0.05 < (three_roundings != want).mean() < 0.5
+    _assert_bits_equal(sinf.grain_texture(t).numpy(), want)
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_point_shapes_and_argument_checks(name):
+    """Shapes in and out (the grain takes points [..., 2] and gives [...]),
+    empty tensors, and the refusals: a dtype other than float32, a device
+    other than the CPU or CUDA, the grain's last dimension."""
+    fn = ENTRY_POINTS[name][2]
+    grain = name == "grain_texture"
+    shape = (3, 5, 2) if grain else (3, 5)
+    x = torch.from_numpy(np.random.default_rng(4).uniform(-50, 50, shape).astype(np.float32))
+    out = fn(x)
+    assert out.shape == (3, 5) and out.dtype == torch.float32
+    assert torch.equal(fn(x[1:2]), out[1:2])
+    assert fn(torch.empty((0, 2) if grain else (0,))).shape == (0,)
+    with pytest.raises(ValueError, match="float32"):
+        fn(x.double())
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        fn(torch.empty(shape, device="meta"))
+    if grain:
+        with pytest.raises(ValueError, match=r"\[\.\.\., 2\]"):
+            fn(torch.zeros(3, 5, 3))
