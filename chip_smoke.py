@@ -21,7 +21,7 @@ end to end at the full width of the repo's model (CILRS, ResNet-34 trunk,
      at a 32-env tick's shape; their times there beside the plain version,
      the unfused composition (the bare sin and the torch epilogue) and the
      bound;
-     their launches a tick are counted in 8 and 11 (four a tick: two rain,
+     their launches a tick are counted in 8, 11 and 11a (four a tick: two rain,
      one grain, one steer) and on 14's run;
   2. the normal entry point: a synthetic session on disk and a .pth policy go
      through ``python -m cilrs_tpu_torch.cli.report``'s main();
@@ -78,6 +78,19 @@ end to end at the full width of the repo's model (CILRS, ResNet-34 trunk,
      tick), one chunk under the profiler with a range per layer (render,
      safety controller, policy forward, NPC controller, physics), one under
      CUDA's sync check, peak memory;
+ 11a. env_steps_full_size: the headline run, ``bench.env_steps`` (the port
+     of ``bench.py``) at its shape: 128 envs of bench.py's drive fleet (the
+     3x3-block town, 12 vehicles, 5 walkers, env e in weather e % 5, the
+     full-width CILRS in bf16, random weights), 50-tick chunks, a warm-up
+     chunk and 5 timed ones: env-steps/s, ms and host ms a tick, peak
+     memory, 4 sin-hash launches a tick; 10 ticks under the profiler with a
+     range per layer (busy share, device activities a tick), a chunk under
+     CUDA's sync check, and each sin hash on the path's own 128-env inputs
+     against its plain version, bit for bit, timed there;
+ 11b. profile_step: ``tools.profile_step`` at 128 envs, its nine phases
+     (wall and device ms a call), their sin-hash launches counted;
+ 11c. ablate_step: ``tools.ablate_step`` at bench shape, 1 warm-up and 2
+     timed chunks an arm, every patch restored, the launches counted;
  12. benchmark_cli: ``python -m cilrs_tpu_torch.cli.benchmark --duration
      20`` on the checkpoint directory collect_cli trained, all five weathers
      (markdown, JSON, event files);
@@ -85,6 +98,11 @@ end to end at the full width of the repo's model (CILRS, ResNet-34 trunk,
      --frames 6000 --envs 16 --epochs 1 --bench-duration 10``: on-card
      collection into the resident table, training and the offline report
      from it (the gather kernel's launches counted) and the benchmark;
+ 13a. report_resident: ``tools.report_resident`` on that checkpoint at the
+     pipeline's frames, seed and envs: the re-collected labels against the
+     pipeline's session CSV, the report against the pipeline's own (the
+     same val rows and weights), the gather kernel's launches, and the
+     kernel on the tool's rows against its plain version, bit for bit;
  14. fused_full_size: ``python -m cilrs_tpu_torch.cli.fused`` at full width
      (Town01, 32 envs, 12 vehicles, 6 walkers, a 65,536-frame ring, 20 ticks
      and 4 train steps a chunk, batch 120, the full-width CILRS in bf16)
@@ -150,6 +168,7 @@ import torch.multiprocessing as torch_mp
 from cilrs_tpu_torch.agent import driver as driver_mod
 from cilrs_tpu_torch.agent.driver import fleet_rollout, model_policy
 from cilrs_tpu_torch.agent.npc import draw_pedestrians
+from cilrs_tpu_torch.bench import env_steps as env_steps_mod
 from cilrs_tpu_torch.bench import hash_sets
 from cilrs_tpu_torch.bench.timing import (HBM_BYTES_PER_S, card_line, copy_bound_ms,
                                           host_us_per_call, median_ms, queued_ms)
@@ -185,6 +204,7 @@ from cilrs_tpu_torch.ops.sinf import (SIN_HASHES, TOP12_120, TOP12_INF, TOP12_PI
 from cilrs_tpu_torch.parallel.fleet import make_sharded_rollout
 from cilrs_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from cilrs_tpu_torch.render import raster as raster_mod
+from cilrs_tpu_torch.render import weather as weather_mod
 from cilrs_tpu_torch.train import checkpoint as ckpt_mod
 from cilrs_tpu_torch.train import fused as fused_mod
 from cilrs_tpu_torch.train.checkpoint import load_policy, save_checkpoint_pth
@@ -192,6 +212,9 @@ from cilrs_tpu_torch.train.loop import (EVAL_GROUP_BATCHES, STEPS_PER_CALL, runn
                                         train_group)
 from cilrs_tpu_torch.train.state import create_train_state
 from cilrs_tpu_torch.train.steps import make_train_step
+from cilrs_tpu_torch.tools import ablate_step as ablate_mod
+from cilrs_tpu_torch.tools import profile_step as profile_step_mod
+from cilrs_tpu_torch.tools import report_resident as report_resident_mod
 
 FULL_FRAMES = 176_256
 FRAME_SHAPE = (88, 200, 3)
@@ -275,6 +298,10 @@ DRIVE_TIMED_CHUNKS = 5
 BENCH_SPAWN, BENCH_DESTINATION = 249, 219
 BENCH_CLI_DURATION = 20
 PIPELINE_FRAMES, PIPELINE_BENCH_DURATION = 6000, 10
+# report_resident re-collects the pipeline's table and scores the pipeline's
+# val rows with its best slot: the report equals the pipeline's own, up to
+# the last bits of a float32 sum if cuDNN took another algorithm.
+REPORT_MATCH_TOL = 1e-6
 # The fused loop at cli.fused's full width; the one cut: 200 train steps of
 # the CLI's 2,000 (38 streaming chunks and a 50-step settle tail after 24
 # warm-up and 24 val chunks; one eval, at the end).
@@ -350,6 +377,12 @@ SINF_RANDOM, SINF_ENVS = 1 << 22, 32
 # Launches of each sin-hash kernel a simulator tick: the renderer's two rain
 # hashes and its grain, the recovery machine's reverse steer.
 SINF_LAUNCHES_PER_TICK = {"hash_sinf": 0, "hash01": 2, "grain_texture": 1, "reverse_steer": 1}
+# The headline run (bench.env_steps, bench.py's drive fleet): BENCH_ENVS,
+# BENCH_TICKS and BENCH_REPS at bench.py's defaults, one warm-up chunk; a
+# profile of 10 of its ticks (the analysis costs about a second a tick).
+BENCH_ENVS, BENCH_TICKS, BENCH_REPS, BENCH_PROFILE_TICKS = 128, 50, 5, 10
+# ablate_step's arms: 1 warm-up and 2 timed chunks each, to fit the limit.
+ABLATE_REPS = 2
 # Float64 peak of an H100 SXM outside the tensor cores (NVIDIA's data sheet).
 FP64_FLOPS_PER_S = 34e12
 
@@ -1525,6 +1558,208 @@ def phase_pipeline_cli(dev, workdir: str) -> dict:
             "bench_overall": {w: s["overall"] for w, s in bench.items()}}
 
 
+# Where the drive tick calls each sin hash: (module, name) of the caller's
+# lookup, and the hash it stands for.
+HASH_CALL_SITES = {"hash01": (weather_mod, "hash01"), "grain_texture": (raster_mod, "grain_texture"),
+                   "reverse_steer": (driver_mod, "reverse_steer")}
+
+
+def _hash_inputs_of_a_tick(fleet) -> dict:
+    """Every input each sin hash gets in one tick of ``fleet``, cloned: the
+    shapes and values the path gives the kernels (the rain's two hashes: the
+    streak columns' phase [88, 200] and the columns at each env's time
+    [E, 88, 200])."""
+    seen = {name: [] for name in HASH_CALL_SITES}
+
+    def grab(name, f):
+        def call(x, *args):
+            seen[name].append(x.clone())
+            return f(x, *args)
+        return call
+
+    saved = {name: getattr(m, attr) for name, (m, attr) in HASH_CALL_SITES.items()}
+    one = dataclasses.replace(fleet, ticks=1)
+    try:
+        for name, (m, attr) in HASH_CALL_SITES.items():
+            setattr(m, attr, grab(name, saved[name]))
+        one.chunk()
+    finally:
+        for name, (m, attr) in HASH_CALL_SITES.items():
+            setattr(m, attr, saved[name])
+    torch.cuda.synchronize()
+    return seen
+
+
+def phase_env_steps_full_size(dev) -> dict:
+    """The headline run, bench.env_steps at bench.py's shape: 128 envs, 50
+    ticks a chunk, 1 warm-up and 5 timed chunks; then one profiled chunk
+    of BENCH_PROFILE_TICKS ticks with a range per layer, one chunk under
+    CUDA's sync check, and each sin hash at the path's 128-env inputs
+    against its plain version, bit for bit."""
+    E, T, REPS = BENCH_ENVS, BENCH_TICKS, BENCH_REPS
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    reset_sinf_launches()
+    gather_rows_paged.launches = 0
+    line, times, fleet = env_steps_mod.run(E, T, REPS, dev)
+    sinf_counts, k1 = sinf_launches(), gather_rows_paged.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(torch.isfinite(x).all() for x in (fleet.state.world.veh_pos,
+                                                 fleet.state.world.veh_speed)):
+        raise AssertionError("non-finite fleet state after the timed chunks")
+    t0 = time.time()
+    profiled = dataclasses.replace(fleet, ticks=BENCH_PROFILE_TICKS)
+    profile = profile_sim_layers(profiled.chunk, BENCH_PROFILE_TICKS, DRIVE_LAYERS, profiled)
+    profile["profile_and_analysis_s"] = time.time() - t0
+    syncs = sync_check(fleet.chunk)
+    if syncs:
+        raise AssertionError(f"a bench chunk waits for the card: {syncs}")
+    hashes, checked = {}, {}
+    for name, xs in _hash_inputs_of_a_tick(fleet).items():
+        fn, plain, _ = FUSED_HASHES[name]
+        for x in xs:
+            if not _same_bits(fn(x), plain(x.cpu())):
+                raise AssertionError(f"{name} kernel differs from its plain version at "
+                                     f"{tuple(x.shape)}")
+        checked[name] = [list(x.shape) for x in xs]
+        hashes[name] = _fused_hash_times(name, max(xs, key=torch.Tensor.numel))
+    ticks = (1 + REPS) * T
+    line = {"phase": "env_steps_full_size", "ok": True, "bench_line": line, **times,
+            "map": "town01 3x3 blocks", "vehicles": env_steps_mod.NUM_VEHICLES,
+            "walkers": env_steps_mod.NUM_PEDESTRIANS, "weathers": "env % 5",
+            "policy": "CILRS ResNet-34, bf16, random init (seed 0)",
+            "peak_mem_bytes": peak, "peak_mem_above_start_bytes": peak - base_mem,
+            "busy_share_unprofiled": profile.get("device_ms_per_tick", 0) / times["ms_per_tick"],
+            "profile_ticks": profile, "host_syncs_in_chunk": 0, "gather_launches": k1,
+            "sin_hash_launches": sinf_counts,
+            "sin_hash_launches_per_tick": sum(sinf_counts.values()) / ticks,
+            "hash_kernels_at_128_envs": {"bit_exact_shapes": checked, "times": hashes}}
+    emit(line)
+    if k1 != 0:
+        raise AssertionError(f"the bench path launched the gather kernel {k1} times")
+    check_sinf_launches(sinf_counts, ticks, "bench drive")
+    return line
+
+
+def phase_profile_step(dev) -> dict:
+    """tools/profile_step at E = 128: the nine timings, wall and device ms;
+    the sin-hash launches of its render and chunk phases."""
+    reset_sinf_launches()
+    t0 = time.time()
+    out = profile_step_mod.profile(BENCH_ENVS, dev)
+    counts = sinf_launches()
+    # Each phase: a warm-up, its timed calls and one profiled call.
+    renders = 1 + profile_step_mod.REPS + 1
+    chunk_ticks = (1 + profile_step_mod.CHUNK_REPS + 1) * profile_step_mod.CHUNK_TICKS
+    want = {"hash_sinf": 0, "hash01": 2 * (renders + chunk_ticks),
+            "grain_texture": renders + chunk_ticks, "reverse_steer": chunk_ticks}
+    line = {"phase": "profile_step", "ok": True, "envs": BENCH_ENVS, "wall_s": time.time() - t0,
+            "timings": out, "sin_hash_launches": counts}
+    emit(line)
+    if counts != want:
+        raise AssertionError(f"profile_step's sin-hash launches {counts}, expected {want}")
+    if any(r["device_ms"] is None or not r["device_ms"] > 0 for r in out.values()):
+        raise AssertionError("a phase without device time")
+    return line
+
+
+def phase_ablate_step(dev) -> dict:
+    """tools/ablate_step at bench shape, 1 warm-up and ABLATE_REPS timed
+    chunks an arm; every patch restored after."""
+    saved = {patch[:2]: getattr(*patch[:2]) for _, _, patch in ablate_mod.ARMS if patch}
+    reset_sinf_launches()
+    t0 = time.time()
+    out = ablate_mod.ablate(BENCH_ENVS, BENCH_TICKS, ABLATE_REPS, dev)
+    counts = sinf_launches()
+    restored = all(getattr(m, name) is v for (m, name), v in saved.items())
+    ticks = len(ablate_mod.ARMS) * (1 + ABLATE_REPS) * BENCH_TICKS
+    arm_ticks = (1 + ABLATE_REPS) * BENCH_TICKS
+    want = {"hash_sinf": 0, "hash01": 2 * ticks, "grain_texture": ticks - arm_ticks,
+            "reverse_steer": ticks}  # the grain arm's renders take no grain
+    line = {"phase": "ablate_step", "ok": True, "envs": BENCH_ENVS, "ticks": BENCH_TICKS,
+            "timed_chunks": ABLATE_REPS, "wall_s": time.time() - t0, "arms": out,
+            "sin_hash_launches": counts, "patches_restored": restored}
+    emit(line)
+    if not restored:
+        raise AssertionError("ablate_step left a patch in place")
+    if counts != want:
+        raise AssertionError(f"ablate_step's sin-hash launches {counts}, expected {want}")
+    return line
+
+
+def _report_leaves(a, b, path="") -> list:
+    """(path, a, b) of every numeric leaf where two reports differ."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [(path, sorted(a), sorted(b))]
+        return [d for k in a for d in _report_leaves(a[k], b[k], f"{path}.{k}")]
+    return [] if a == b or (a != a and b != b) else [(path, a, b)]
+
+
+def phase_report_resident(dev, workdir: str) -> tuple[dict, dict]:
+    """tools/report_resident on pipeline_cli's checkpoint at its frames, seed
+    and envs: the re-collected labels against the pipeline's session CSV,
+    the report against the pipeline's report (the same val rows, the same
+    best-slot weights), and the gather kernel on the tool's indices against
+    its plain version, bit for bit."""
+    work = os.path.join(workdir, "pipeline")
+    seen = []
+    predict = report_resident_mod.collect_predictions_resident
+
+    def recorded(model, table, labels, idx, batch, cfg):
+        seen.append((table, labels, np.asarray(idx)))
+        return predict(model, table, labels, idx, batch, cfg)
+
+    gather_rows_paged.launches = 0
+    reset_sinf_launches()
+    report_resident_mod.collect_predictions_resident = recorded
+    t0 = time.time()
+    try:
+        report = report_resident_mod.main([
+            "--checkpoint", os.path.join(work, "ckpt"), "--frames", str(PIPELINE_FRAMES),
+            "--seed", "0", "--envs", str(SIM_ENVS), "--split", "val",
+            "--out", os.path.join(workdir, "report_resident.json"), "--device", str(dev)])
+    finally:
+        report_resident_mod.collect_predictions_resident = predict
+    wall = time.time() - t0
+    launches, sinf_counts = gather_rows_paged.launches, sinf_launches()
+    table, labels, rows = seen[0]
+    # The re-collection against the pipeline's: its session CSV (labels
+    # printed to 6 decimals, speeds and positions to 3).
+    ds = load_sessions_labels(os.path.join(work, "session_resident"))
+    label_errs = {"controls": float(np.abs(labels["controls"] - ds.controls).max()),
+                  "speed": float(np.abs(labels["speed"] - ds.speed_norm).max())}
+    cmd_mismatch = int((labels["command"] != ds.command).sum())
+    with open(os.path.join(work, "evaluation_report.json")) as f:
+        pipeline_report = json.load(f)
+    diffs = _report_leaves(json.loads(json.dumps(report)), pipeline_report)
+    max_diff = max((abs(a - b) for _, a, b in diffs
+                    if isinstance(a, (int, float)) and isinstance(b, (int, float))), default=0.0)
+    # K1 on the tool's rows, against its plain version.
+    idx = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+    err = kernel_vs_plain(table["images"], idx, table["page_rows"])
+    want_launches = -(-len(rows) // (BATCH * GROUP_BATCHES))
+    line = {"phase": "report_resident", "ok": True, "frames": PIPELINE_FRAMES, "envs": SIM_ENVS,
+            "wall_s": wall, "val_rows": len(rows), "gather_launches": launches,
+            "expected_launches": want_launches, "gather_max_abs_err": err,
+            "sin_hash_launches": sinf_counts,
+            "labels_vs_pipeline_csv": {"max_abs_err": label_errs,
+                                       "command_mismatches": cmd_mismatch},
+            "report_vs_pipeline": {"leaves_differing": len(diffs), "max_abs_diff": max_diff,
+                                   "first": diffs[:5]},
+            "report_steer_mae": report["steer"]["mae"]}
+    emit(line)
+    if launches != want_launches:
+        raise AssertionError(f"{launches} gather launches, expected {want_launches}")
+    if len(labels["speed"]) != PIPELINE_FRAMES or cmd_mismatch or \
+            not all(e <= 1.01e-6 for e in label_errs.values()):
+        raise AssertionError(f"re-collected labels differ from the pipeline's: {label_errs}, "
+                             f"{cmd_mismatch} commands")
+    if any(not isinstance(a, (int, float)) for _, a, _ in diffs) or max_diff > REPORT_MATCH_TOL:
+        raise AssertionError(f"report differs from the pipeline's: {diffs[:5]}")
+    return line, {"launches": launches, "max_abs_err": err}
+
+
 def _probe(module, name: str, timed, sync_call: int, profile_call: int, ticks: int):
     """Wrap ``module.name`` for one run: calls numbered in ``timed`` are
     synchronised before and after (host ms to issue, wall ms), call
@@ -2236,7 +2471,9 @@ def load_sessions_labels(session: str):
 # Phases that ``--phase NAME`` runs alone (switches_check runs them in a
 # process of their own, with its switches set).
 ALONE = {"switches_render": phase_switches_render, "drive_check": phase_drive_check,
-         "hash_sinf_check": phase_hash_sinf_check}
+         "hash_sinf_check": phase_hash_sinf_check,
+         "env_steps_full_size": phase_env_steps_full_size, "profile_step": phase_profile_step,
+         "ablate_step": phase_ablate_step}
 
 
 def main(argv: list) -> int:
@@ -2288,11 +2525,19 @@ def main(argv: list) -> int:
             phase_drive_check(dev)
             phase = "drive_full_size"
             drive_line = phase_drive_full_size(dev)
+            phase = "env_steps_full_size"
+            bench_line = phase_env_steps_full_size(dev)
+            phase = "profile_step"
+            profile_line = phase_profile_step(dev)
+            phase = "ablate_step"
+            ablate_line = phase_ablate_step(dev)
             phase = "benchmark_cli"
             emit(phase_benchmark_cli(dev, workdir, os.path.join(workdir, "run_collected")))
             phase = "pipeline_cli"
             pipeline_line = phase_pipeline_cli(dev, workdir)
             emit(pipeline_line)
+            phase = "report_resident"
+            resident_line, resident_kernel = phase_report_resident(dev, workdir)
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory(prefix="cilrs_smoke_fused_") as workdir:
             phase = "fused_full_size"
@@ -2316,15 +2561,21 @@ def main(argv: list) -> int:
                                       "collect_full_size": collect_line["gather_launches"],
                                       "drive_full_size": drive_line["gather_launches"],
                                       "pipeline_cli": pipeline_line["gather_launches"],
+                                      "env_steps_full_size": bench_line["gather_launches"],
+                                      "report_resident": resident_kernel["launches"],
                                       "fused_full_size": fused_kernel.pop("launches"),
                                       "fused_sharded_full_size": sharded_line["gather_launches"]}
         kernel["launches"] = sum(kernel["launches_by_path"].values())
         kernel["max_abs_err"] = max(kernel["max_abs_err"], train_kernel.pop("max_abs_err"),
-                                    fused_kernel.pop("max_abs_err"))
+                                    fused_kernel.pop("max_abs_err"), resident_kernel["max_abs_err"])
         # The source's kernels on the main paths, every mode: each path's
         # counts by mode, and their sum.
         by_path = {"collect_full_size": collect_line["sin_hash_launches"],
                    "drive_full_size": drive_line["sin_hash_launches"],
+                   "env_steps_full_size": bench_line["sin_hash_launches"],
+                   "profile_step": profile_line["sin_hash_launches"],
+                   "ablate_step": ablate_line["sin_hash_launches"],
+                   "report_resident": resident_line["sin_hash_launches"],
                    "fused_full_size": fused_kernel.pop("sin_hash_launches")}
         sinf_kernel["launches_by_path"] = by_path
         sinf_kernel["launches"] = sum(sum(c.values()) for c in by_path.values())
@@ -2332,11 +2583,16 @@ def main(argv: list) -> int:
             mode["launches"] = sum(c[name] for c in by_path.values())
         sinf_kernel["launches_per_tick"] = {
             "collect": collect_line["sin_hash_launches_per_tick"],
-            "drive": drive_line["sin_hash_launches_per_tick"]}
+            "drive": drive_line["sin_hash_launches_per_tick"],
+            "drive_128_envs": bench_line["sin_hash_launches_per_tick"]}
         # Every kernel a tick launches, under the profiler.
         sinf_kernel["tick_device_activities"] = {
             "collect": collect_line["profile_one_chunk"].get("device_activities_per_tick"),
-            "drive": drive_line["profile_one_chunk"].get("device_activities_per_tick")}
+            "drive": drive_line["profile_one_chunk"].get("device_activities_per_tick"),
+            "drive_128_envs": bench_line["profile_ticks"].get("device_activities_per_tick")}
+        sinf_kernel["at_128_envs"] = {
+            name: {k: t[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by")}
+            for name, t in bench_line["hash_kernels_at_128_envs"]["times"].items()}
         kernel.update(train_kernel)
         kernel.update(fused_kernel)
         emit({"kernels": [kernel, sinf_kernel]})

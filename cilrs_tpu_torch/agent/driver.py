@@ -128,9 +128,10 @@ def _check_mode(mode: str):
 
 
 def env_observe(state: DriverState, net: RoadNetwork, pool: RoutePool,
-                cam: CameraSpec = CAMERA, mode: str = "collect") -> dict:
+                cam: CameraSpec = CAMERA, mode: str = "collect", want_frame: bool = True) -> dict:
     """Observation phase of every env: route context, perception, camera.
-    pool is the fleet's [E, K, R, ...] route pools."""
+    pool is the fleet's [E, K, R, ...] route pools. ``want_frame=False``
+    skips the render (the frame is None)."""
     _check_mode(mode)
     world = state.world
     route = pool.get(state.route_id)
@@ -155,7 +156,7 @@ def env_observe(state: DriverState, net: RoadNetwork, pool: RoutePool,
         red_ahead = torch.zeros_like(tl_state, dtype=torch.bool)
     on_road = ~perception.ego_off_road(net, ego_pos)
 
-    frame = render_frame(net, world, lights, cam)
+    frame = render_frame(net, world, lights, cam) if want_frame else None
 
     return {
         "route": route, "lights": lights,
@@ -188,7 +189,7 @@ def env_act(
     """Action phase of every env: the safety cascade on the policy's
     ``nn_controls`` [E, 3] (drive mode) or the autopilot teacher (collect
     mode), machines, physics, events, metrics. Consumes the observation dict
-    of ``env_observe``.
+    of ``env_observe``; its frame, when not None, is output quantized to u8.
 
     hold_until_s > 0 parks the ego (brake 0.8) in drive mode until that sim
     time: the benchmark's departure-phase sweep (``cli.drive --depart-delay``).
@@ -400,8 +401,6 @@ def env_act(
         route_done=route_done2,
     )
     outputs = {
-        # uint8 on the device: 4x less to copy out.
-        "frame": (torch.clamp(obs["frame"], 0.0, 1.0) * 255.0).to(torch.uint8),
         "control": control,
         "status": status,
         "command": cmd,
@@ -417,6 +416,8 @@ def env_act(
         "tp_cause": tp_cause,
         "recovered": start_rec,
     }
+    if obs["frame"] is not None:  # uint8 on the device: 4x less to copy out
+        outputs["frame"] = (torch.clamp(obs["frame"], 0.0, 1.0) * 255.0).to(torch.uint8)
     return new_state, outputs
 
 
@@ -433,6 +434,7 @@ def fleet_rollout(
     policy=None,
     loop_routes: bool = True,
     hold_until_s: float = 0.0,
+    want_frames: bool = True,
 ):
     """``steps`` ticks of the whole fleet. Returns (final state, outputs), the
     outputs stacked [E, T, ...] on the device, as ``jax.vmap(rollout)``
@@ -443,6 +445,11 @@ def fleet_rollout(
     cmd [E]) -> [E, 3]`` runs once a tick, batched over the fleet, under
     ``torch.inference_mode``, on the normalized float render (not the u8
     output). The JAX package's single-env ``rollout`` is this with E = 1.
+
+    ``want_frames=False`` drops ``"frame"`` from the outputs and skips its u8
+    quantize; in collect mode it skips the render too (drive mode renders
+    for the policy). The default here is frames on, where the JAX
+    function's is off.
     """
     _check_mode(mode)
     if mode == "drive" and policy is None:
@@ -454,11 +461,14 @@ def fleet_rollout(
     ticks = []
     state = fleet
     for t in range(steps):
-        obs = env_observe(state, net, pool, cam, mode=mode)
+        obs = env_observe(state, net, pool, cam, mode=mode,
+                          want_frame=want_frames or mode == "drive")
         nn = None
         if mode == "drive":
             with torch.inference_mode():
                 nn = policy(normalize(obs["frame"]), obs["speed_norm"], obs["cmd"])
+            if not want_frames:
+                obs["frame"] = None
         state, outs = env_act(state, obs, ped_draws[t], net, pool, wt, params, mode=mode,
                               nn_controls=nn, loop_routes=loop_routes, hold_until_s=hold_until_s)
         ticks.append(outs)

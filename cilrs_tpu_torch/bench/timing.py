@@ -98,3 +98,18 @@ def card_line() -> str:
     if res.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
+
+
+def profiled_device_time(fn) -> tuple[float, int]:
+    """One call of fn under torch.profiler, synchronised: the device ms of
+    the kernels and copies it ran, summed, and their count. Warm fn up
+    first (cuDNN's algorithms, built kernels, cached constants)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
+    return sum(e.self_device_time_total for e in kernels) / 1e3, sum(e.count for e in kernels)

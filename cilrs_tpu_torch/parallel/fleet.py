@@ -95,9 +95,8 @@ def make_sharded_rollout(
         else:
             pool = tree_map(lambda x: x.expand((n,) + x.shape), pool)
         final, outs = fleet_rollout(local, steps, net, pool, wt, params, draws, mode=mode, cam=cam,
-                                    policy=policy, loop_routes=loop_routes)
-        if not want_frames:
-            outs = {k: v for k, v in outs.items() if k != "frame"}
+                                    policy=policy, loop_routes=loop_routes,
+                                    want_frames=want_frames)
         final, outs = all_gather(mesh, (final, outs))
         if padded != E:
             final = tree_map(lambda x: x[:E], final)

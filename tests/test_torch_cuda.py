@@ -16,7 +16,7 @@ torch = pytest.importorskip("torch")
 from cilrs_tpu_torch import config as tc  # noqa: E402
 from cilrs_tpu_torch.agent.driver import fleet_rollout  # noqa: E402
 from cilrs_tpu_torch.agent.npc import draw_pedestrians  # noqa: E402
-from cilrs_tpu_torch.bench import hash_sets  # noqa: E402
+from cilrs_tpu_torch.bench import env_steps, hash_sets  # noqa: E402
 from cilrs_tpu_torch.data.collect import make_collect_fleet  # noqa: E402
 from cilrs_tpu_torch.data.dataset import make_synthetic_dataset  # noqa: E402
 from cilrs_tpu_torch.data.resident import labels_dataset, ship_resident  # noqa: E402
@@ -215,6 +215,25 @@ def test_sin_hash_kernels_match_plain(cuda_device, name):
     assert empty.shape == (0,) and empty.device.type == "cuda" and _launches(name) == before
 
 
+# The headline run's shapes: 128 envs (bench.py's fleet).
+BENCH_SHAPES = {"hash01": (128, 88, 200), "grain_texture": (128, 17_600), "reverse_steer": (128,)}
+
+
+@pytest.mark.parametrize("name", SIN_HASH_ENTRY_POINTS)
+def test_sin_hash_kernels_match_plain_at_128_envs(cuda_device, name):
+    """Each fused hash at a 128-env tick's shape against its plain version on
+    the CPU, bit for bit, in one launch."""
+    fn, plain, trail, _ = SIN_HASH_ENTRY_POINTS[name]
+    shape = BENCH_SHAPES[name]
+    x = _sin_hash_inputs(name, int(np.prod(shape)), torch.Generator().manual_seed(7))
+    x = x.reshape(*shape, *trail)
+    before = _launches(name)
+    got = fn(x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert _launches(name) == before + 1
+    assert got.shape == shape and _same_bits(got, plain(x))
+
+
 @pytest.mark.parametrize("name", SIN_HASH_ENTRY_POINTS)
 def test_sin_hash_kernels_refuse_strided_input(cuda_device, name):
     """A strided input on the card raises and launches nothing (the plain
@@ -307,6 +326,26 @@ def test_collect_chunk_never_waits_for_the_card(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert outs["frame"].shape == (2, 5, 88, 200, 3) and outs["frame"].is_cuda
+
+
+def test_bench_chunk_never_waits_for_the_card(cuda_device):
+    """bench.env_steps's drive chunk (8 envs, the full-width CILRS in bf16)
+    issues its ticks without a host sync (CUDA's sync checker raises on
+    one), after a warm-up chunk; its sin hashes launch 4 times a tick."""
+    fleet = env_steps.make_bench_fleet(8, 5, cuda_device)
+    fleet.chunk()
+    torch.cuda.synchronize()
+    before = {name: _launches(name) for name in SIN_HASH_ENTRY_POINTS}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = fleet.chunk()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert {name: _launches(name) - before[name] for name in before} == {
+        "hash01": 10, "grain_texture": 5, "reverse_steer": 5}
+    assert state.world.veh_pos.is_cuda and torch.isfinite(state.world.veh_pos).all()
+    assert (state.metrics.total_frames == 10).all()
 
 
 def test_fused_ring_and_sampler_on_card_match_cpu(cuda_device):
