@@ -47,6 +47,17 @@ end to end at the full width of the repo's model (CILRS, ResNet-34 trunk,
      counted); train frames/s and ms a step through the loop's group function
      after a warm-up group, peak memory, one train group under the profiler,
      and the kernel at an eval group's 6,000 rows against its bound;
+  6a. table_audit: ``tools.exp_paged_audit``'s sweep and
+     ``tools.exp_checksum``'s read audit over every row of that table: the
+     gather kernel in 44 launches of 4,096 rows each against plain reads of
+     each page, a plain and a position-weighted checksum a row, 0
+     mismatches; the rows at the page boundary; the kernel at 4,096 and 240
+     rows against its bound and index_select (also alone: ``--phase
+     table_audit``);
+  6b. cross_eval_full_size: ``tools.exp_cross_eval``'s scoring of every row
+     of the table (1,468 batches of 120, 30 launches of 50 batches) with
+     cli_report's checkpoint, its predictions against
+     collect_predictions_resident's on the same rows, frames/s;
   7. collect_check: the closed-loop simulator in collect mode (Town01, 4
      envs, clear and night, 12 vehicles, 6 walkers, 88x200 camera) for 50
      ticks on the card and on the CPU from the same fleet and the same
@@ -103,6 +114,15 @@ end to end at the full width of the repo's model (CILRS, ResNet-34 trunk,
      pipeline's session CSV, the report against the pipeline's own (the
      same val rows and weights), the gather kernel's launches, and the
      kernel on the tool's rows against its plain version, bit for bit;
+ 13b. tools_resident: the other ported tools' mains on the pipeline's
+     collection (6,000 frames, seed 0, 16 envs; each distinct collection
+     made once and reused): ``exp_checksum --small 3000 --big 6000``,
+     ``exp_paged_audit``, ``exp_image_stats``, ``exp_label_structure``,
+     ``exp_cross_eval`` on the pipeline's checkpoint, ``label_noise_floor``
+     and ``corr_ceiling`` on its session CSV, ``exp_seed_arms --epochs 1
+     --seeds 43 137`` and ``exp_row_region --epochs 1 --train-rows 3000``;
+     the gather kernel's launches by tool; ``graft_entry.entry()`` on the
+     card against its CPU run;
  14. fused_full_size: ``python -m cilrs_tpu_torch.cli.fused`` at full width
      (Town01, 32 envs, 12 vehicles, 6 walkers, a 65,536-frame ring, 20 ticks
      and 4 train steps a chunk, batch 120, the full-width CILRS in bf16)
@@ -212,7 +232,18 @@ from cilrs_tpu_torch.train.loop import (EVAL_GROUP_BATCHES, STEPS_PER_CALL, runn
                                         train_group)
 from cilrs_tpu_torch.train.state import create_train_state
 from cilrs_tpu_torch.train.steps import make_train_step
+from cilrs_tpu_torch import graft_entry
 from cilrs_tpu_torch.tools import ablate_step as ablate_mod
+from cilrs_tpu_torch.tools import arms as arms_mod
+from cilrs_tpu_torch.tools import corr_ceiling as corr_ceiling_mod
+from cilrs_tpu_torch.tools import exp_checksum as checksum_mod
+from cilrs_tpu_torch.tools import exp_cross_eval as cross_eval_mod
+from cilrs_tpu_torch.tools import exp_image_stats as image_stats_mod
+from cilrs_tpu_torch.tools import exp_label_structure as label_structure_mod
+from cilrs_tpu_torch.tools import exp_paged_audit as paged_audit_mod
+from cilrs_tpu_torch.tools import exp_row_region as row_region_mod
+from cilrs_tpu_torch.tools import exp_seed_arms as seed_arms_mod
+from cilrs_tpu_torch.tools import label_noise_floor as noise_floor_mod
 from cilrs_tpu_torch.tools import profile_step as profile_step_mod
 from cilrs_tpu_torch.tools import report_resident as report_resident_mod
 
@@ -385,6 +416,18 @@ BENCH_ENVS, BENCH_TICKS, BENCH_REPS, BENCH_PROFILE_TICKS = 128, 50, 5, 10
 ABLATE_REPS = 2
 # Float64 peak of an H100 SXM outside the tensor cores (NVIDIA's data sheet).
 FP64_FLOPS_PER_S = 34e12
+# The table audits over every row of the full-size table, the audit tools'
+# 4,096 rows a launch; K1 timed there and at exp_image_stats's 240 rows.
+AUDIT_BATCH, IMAGE_STATS_ROWS = paged_audit_mod.BATCH, 240
+# exp_cross_eval against collect_predictions_resident on the same rows: the
+# same 120-row batches through the same bf16 model (0 expected; the bound
+# allows another cuDNN algorithm's last bits).
+CROSS_EVAL_TOL = 1e-5
+# tools_resident: each tool's main on the pipeline's collection (6,000
+# frames, seed 0, 16 envs); the arms one epoch; exp_row_region's arms 3,000
+# rows each (its default of 80,000 would make both arms every row).
+TOOL_ARM_EPOCHS, TOOL_ARM_SEEDS, TOOL_TRAIN_ROWS = 1, (43, 137), 3000
+CHECKSUM_SMALL = 3000
 
 
 _START = time.time()
@@ -736,8 +779,9 @@ def _leaves(d):
         yield float(d)
 
 
-def phase_full_size(dev, ckpt: str) -> tuple:
-    cfg = load_train_config()
+def full_size_table(dev) -> tuple[dict, dict]:
+    """The 176,256-frame u8 table on the card (2 pages, random frames from
+    seed 42) and its synthetic labels as host numpy."""
     num_pages, page_rows, _ = paged_layout(FULL_FRAMES, ROW_BYTES, 0)
     g = torch.Generator(device=dev).manual_seed(42)
     pages = tuple(
@@ -750,7 +794,15 @@ def phase_full_size(dev, ckpt: str) -> tuple:
              "command": torch.from_numpy(lab.command).to(dev),
              "controls": torch.from_numpy(lab.controls).to(dev)}
     labels = {"speed": lab.speed_norm, "command": lab.command, "controls": lab.controls}
-    _, val_idx = stratified_split(lab, cfg.training.val_fraction, cfg.training.seed)
+    return table, labels
+
+
+def phase_full_size(dev, ckpt: str) -> tuple:
+    cfg = load_train_config()
+    table, labels = full_size_table(dev)
+    pages, page_rows, num_pages = table["images"], table["page_rows"], len(table["images"])
+    _, val_idx = stratified_split(labels_dataset(labels), cfg.training.val_fraction,
+                                  cfg.training.seed)
     model = load_policy(ckpt, cfg, dev)
 
     # Warm-up on one group (cuDNN picks its algorithms), then the timed passes:
@@ -1098,6 +1150,112 @@ def phase_train_full_size(dev, table: dict, labels: dict, val_idx: np.ndarray) -
                   "ms_6000_rows": gather["kernel_ms"], "plain_ms_6000_rows": gather["plain_ms"],
                   "library_ms_6000_rows": gather["index_select_ms"],
                   "bound_ms_6000_rows": gather["bound_ms"]}
+
+
+def phase_table_audit(dev, table: dict) -> tuple[dict, dict]:
+    """tools/exp_paged_audit's sweep and tools/exp_checksum's read audit over
+    every row of the full-size two-page table: the row-gather kernel in
+    4,096-row launches against plain reads of each page (the sweep indexes
+    the page, the read audit slices it), a plain and a position-weighted
+    checksum a row; the rows on both sides of the page boundary through the
+    kernel against the plain gather; then K1 at the audits' 4,096 rows and
+    exp_image_stats's 240 against its bound and index_select."""
+    pages, page_rows = table["images"], table["page_rows"]
+    want = -(-FULL_FRAMES // AUDIT_BATCH)
+    torch.cuda.synchronize()
+    gather_rows_paged.launches = 0
+    t0 = time.time()
+    bad, means = paged_audit_mod.sweep(table, FULL_FRAMES, AUDIT_BATCH)
+    sweep_s = time.time() - t0
+    sweep_launches = gather_rows_paged.launches
+    gather_rows_paged.launches = 0
+    t0 = time.time()
+    read_mis = checksum_mod.read_audit(pages, page_rows, FULL_FRAMES, AUDIT_BATCH)
+    read_s = time.time() - t0
+    read_launches = gather_rows_paged.launches
+    edge = torch.tensor([page_rows - 2, page_rows - 1, page_rows, page_rows + 1, 0,
+                         FULL_FRAMES - 1], dtype=torch.int32, device=dev)
+    err = kernel_vs_plain(pages, edge, page_rows)
+    rng = np.random.RandomState(0)
+    times = {}
+    for rows in (AUDIT_BATCH, IMAGE_STATS_ROWS):
+        idx = np.sort(rng.choice(FULL_FRAMES, rows, replace=False)).astype(np.int32)
+        times[rows] = _gather_times(pages, torch.from_numpy(idx).to(dev), page_rows)
+        err = max(err, times[rows]["max_abs_err"])
+    line = {"phase": "table_audit", "ok": True, "frames": FULL_FRAMES, "pages": len(pages),
+            "page_rows": page_rows, "batch": AUDIT_BATCH,
+            "paged_audit": {"mismatching_checksums": bad, "gather_launches": sweep_launches,
+                            "wall_s": sweep_s, "mean_brightness": float(means.mean())},
+            "checksum_read_audit": {"mismatching_rows": int(len(read_mis)),
+                                    "first": read_mis[:20].tolist(),
+                                    "gather_launches": read_launches, "wall_s": read_s},
+            "expected_launches_each": want, "page_boundary_max_abs_err": err,
+            "gather_4096": times[AUDIT_BATCH], "gather_240": times[IMAGE_STATS_ROWS]}
+    emit(line)
+    if bad or len(read_mis):
+        raise AssertionError(f"the kernel's reads differ from plain reads: {bad} checksums in the "
+                             f"sweep, rows {read_mis[:20].tolist()} in the read audit")
+    if (sweep_launches, read_launches) != (want, want):
+        raise AssertionError(f"{sweep_launches} and {read_launches} gather launches, "
+                             f"expected {want} each")
+    if not (np.isfinite(means).all() and abs(float(means.mean()) - 127.5) < 1.0):
+        raise AssertionError(f"mean brightness {float(means.mean())} of uniform u8 frames")
+    kernel = {}
+    for rows, t in times.items():
+        kernel.update({f"ms_{rows}_rows": t["kernel_ms"],
+                       f"ms_queued_{rows}_rows": t["kernel_ms_queued"],
+                       f"plain_ms_{rows}_rows": t["plain_ms"],
+                       f"library_ms_{rows}_rows": t["index_select_ms"],
+                       f"library_ms_queued_{rows}_rows": t["index_select_ms_queued"],
+                       f"bound_ms_{rows}_rows": t["bound_ms"]})
+    return line, {"launches": sweep_launches + read_launches, "max_abs_err": err, **kernel}
+
+
+def phase_table_audit_alone(dev) -> dict:
+    """table_audit on its own (``--phase table_audit``): the full-size table
+    built as phase full_size builds it."""
+    table, _ = full_size_table(dev)
+    return phase_table_audit(dev, table)[0]
+
+
+def phase_cross_eval_full_size(dev, ckpt: str, table: dict, labels: dict) -> dict:
+    """tools/exp_cross_eval's scoring over every row of the full-size table
+    with cli_report's full-width checkpoint (bf16 on the card): 1,468
+    batches of 120 in groups of 50, one K1 launch a group; its predictions
+    against collect_predictions_resident on the same rows."""
+    cfg = load_train_config()
+    model = load_policy(ckpt, cfg, dev)
+    B, K = cross_eval_mod.B, cross_eval_mod.K
+    n_batches = FULL_FRAMES // B
+    n_eval = n_batches * B
+    want = -(-n_batches // K)
+    cross_eval_mod.eval_group(model, table, np.arange(K * B).reshape(K, B))  # cuDNN's choice
+    torch.cuda.synchronize()
+    gather_rows_paged.launches = 0
+    t0 = time.time()
+    out, preds = cross_eval_mod.cross_eval(model, table, labels, FULL_FRAMES, ckpt)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = gather_rows_paged.launches
+    ref, _, _ = collect_predictions_resident(model, table, labels, np.arange(n_eval), BATCH, cfg)
+    err = float(np.abs(preds - ref[:, :3]).max())
+    regions = out["regions"]
+    line = {"phase": "cross_eval_full_size", "ok": True, "frames": FULL_FRAMES,
+            "rows_scored": n_eval, "batches": n_batches, "batch": B, "batches_a_launch": K,
+            "gather_launches": launches, "expected_launches": want, "wall_s": wall,
+            "frames_per_s": n_eval / wall,
+            "max_abs_err_vs_collect_predictions_resident": err, "tolerance": CROSS_EVAL_TOL,
+            "regions": regions, "buckets_8k": len(out["buckets_8k"])}
+    emit(line)
+    if launches != want:
+        raise AssertionError(f"{launches} gather launches, expected {want}")
+    if preds.shape != (n_eval, 3) or not np.isfinite(preds).all() or err > CROSS_EVAL_TOL:
+        raise AssertionError(f"cross-eval predictions {preds.shape}, max abs err {err} against "
+                             "collect_predictions_resident")
+    if not all(math.isfinite(r["steer_mae"]) for r in regions.values()) or \
+            len(out["buckets_8k"]) != -(-n_eval // cross_eval_mod.BUCKET_ROWS):
+        raise AssertionError(f"cross-eval regions {regions}")
+    return line
 
 
 def profile_ops(fn, ticks: int) -> dict:
@@ -1758,6 +1916,146 @@ def phase_report_resident(dev, workdir: str) -> tuple[dict, dict]:
     if any(not isinstance(a, (int, float)) for _, a, _ in diffs) or max_diff > REPORT_MATCH_TOL:
         raise AssertionError(f"report differs from the pipeline's: {diffs[:5]}")
     return line, {"launches": launches, "max_abs_err": err}
+
+
+@contextlib.contextmanager
+def cached_collections(modules):
+    """The tools' ``collect_resident`` (looked up in each of ``modules``)
+    served from a cache keyed by its arguments and the big-table switch: the
+    first call of a key collects, the others reuse its table (the simulator
+    is deterministic; report_resident shows that a re-collection equals the
+    pipeline's). Yields the list of real collections, with their walls."""
+    real = modules[0].collect_resident
+    cache, made = {}, []
+
+    def collect(net, num_frames, **kw):
+        key = (num_frames, os.environ.get(checksum_mod.BIG_TABLE_SWITCH),
+               *sorted((k, str(v)) for k, v in kw.items()))
+        if key not in cache:
+            t0 = time.time()
+            cache[key] = real(net, num_frames, **kw)
+            torch.cuda.synchronize()
+            made.append({"frames": num_frames, "big_table_switch": key[1],
+                         "pages": len(cache[key][0]["images"]), "wall_s": time.time() - t0})
+        return cache[key]
+
+    saved = [(m, m.collect_resident) for m in modules]
+    for m in modules:
+        m.collect_resident = collect
+    try:
+        yield made
+    finally:
+        for m, fn in saved:
+            m.collect_resident = fn
+
+
+def phase_tools_resident(dev, workdir: str) -> tuple[dict, dict, dict]:
+    """Each ported tool's main on pipeline_cli's collection (6,000 frames,
+    seed 0, 16 envs; the tools' own defaults otherwise) and on its session
+    CSV and checkpoint: the audits' mismatches, K1's launches by tool, and
+    graft_entry's forward on the card against its CPU run."""
+    work = os.path.join(workdir, "pipeline")
+    out_dir = os.path.join(workdir, "tools")
+    os.makedirs(out_dir)
+    frames = ["--frames", str(PIPELINE_FRAMES)]
+    res, launches, walls = {}, {}, {}
+
+    def run(name, main, argv):
+        gather_rows_paged.launches = 0
+        t0 = time.time()
+        res[name] = main(argv + ["--device", str(dev)])
+        torch.cuda.synchronize()
+        walls[name] = time.time() - t0
+        launches[name] = gather_rows_paged.launches
+
+    out = lambda name: ["--out", os.path.join(out_dir, f"{name}.json")]
+    reset_sinf_launches()
+    with cached_collections([checksum_mod, paged_audit_mod, image_stats_mod, label_structure_mod,
+                             cross_eval_mod, arms_mod]) as collections:
+        run("exp_checksum", checksum_mod.main,
+            ["--small", str(CHECKSUM_SMALL), "--big", str(PIPELINE_FRAMES), "--envs",
+             str(SIM_ENVS), "--seed", "0", *out("checksum")])
+        run("exp_paged_audit", paged_audit_mod.main, frames)
+        run("exp_image_stats", image_stats_mod.main, frames + out("image_stats"))
+        run("exp_label_structure", label_structure_mod.main, frames + out("label_structure"))
+        run("exp_cross_eval", cross_eval_mod.main,
+            frames + ["--ckpt", os.path.join(work, "ckpt"), *out("cross_eval"),
+                      "--save-preds", os.path.join(out_dir, "cross_eval_preds.npz")])
+        run("label_noise_floor", noise_floor_mod.main, [os.path.join(work, "session_resident")])
+        run("corr_ceiling", corr_ceiling_mod.main, [os.path.join(work, "session_resident")])
+        run("exp_seed_arms", seed_arms_mod.main,
+            frames + ["--epochs", str(TOOL_ARM_EPOCHS), "--seeds", *map(str, TOOL_ARM_SEEDS),
+                      *out("seed_arms")])
+        run("exp_row_region", row_region_mod.main,
+            frames + ["--epochs", str(TOOL_ARM_EPOCHS), "--train-rows", str(TOOL_TRAIN_ROWS),
+                      *out("row_region")])
+    sin_counts = sinf_launches()
+
+    # graft_entry's forward on the card (bf16 trunk, float32 heads without
+    # TF32) against its CPU run in float32, on the same weights and inputs.
+    fn, args = graft_entry.entry(dev)
+    cpu_fn, _ = graft_entry.entry("cpu")
+    g = torch.Generator().manual_seed(0)
+    x = (torch.rand(args[0].shape, generator=g) * 4 - 2,
+         torch.rand(args[1].shape, generator=g),
+         torch.randint(0, 4, args[2].shape, generator=g, dtype=torch.int32))
+    card = [t.float().cpu() for t in fn(*(t.to(dev) for t in x))]
+    cpu = cpu_fn(*x)
+    entry_err = {}
+    for name, a, ref in (("controls", card[0], cpu[0]), ("pred_speed", card[1], cpu[1])):
+        entry_err[name] = {
+            "rel_err": float((a - ref).abs().max() / ref.abs().max().clamp_min(1e-12)),
+            "corr": float(np.corrcoef(a.flatten().numpy(), ref.flatten().numpy())[0, 1])}
+
+    ck, pa, cross = res["exp_checksum"], res["exp_paged_audit"], res["exp_cross_eval"]
+    cells = sum(len(c) for c in res["exp_image_stats"].values())
+    want = {"exp_checksum": -(-CHECKSUM_SMALL // AUDIT_BATCH) + -(-PIPELINE_FRAMES // AUDIT_BATCH),
+            "exp_paged_audit": -(-PIPELINE_FRAMES // AUDIT_BATCH), "exp_image_stats": cells,
+            "exp_cross_eval": -(-(PIPELINE_FRAMES // cross_eval_mod.B) // cross_eval_mod.K)}
+    arm_runs = {**res["exp_seed_arms"], **res["exp_row_region"]}
+    line = {"phase": "tools_resident", "ok": True, "frames": PIPELINE_FRAMES, "seed": 0,
+            "envs": SIM_ENVS,
+            "cuts": {"frames": PIPELINE_FRAMES, "exp_checksum_small": CHECKSUM_SMALL,
+                     "arm_epochs": TOOL_ARM_EPOCHS, "stream_seeds": list(TOOL_ARM_SEEDS),
+                     "row_region_train_rows": TOOL_TRAIN_ROWS},
+            "collections": collections, "wall_s": walls, "gather_launches": launches,
+            "expected_launches": want, "sin_hash_launches": sin_counts,
+            "exp_checksum": {k: ck[k] for k in ("write_mismatches", "read_mismatches",
+                                                "row_bytes", "wrap_row")},
+            "exp_paged_audit": {"exactness_mismatches": pa["exactness_mismatches"],
+                                "oracle_mismatches": pa["oracle"]["mismatches"],
+                                "oracle_pct_by_env": pa["oracle"]["pct_by_env"]},
+            "exp_image_stats_cells": cells,
+            "exp_label_structure_rows": {k: v["rows"]
+                                         for k, v in res["exp_label_structure"].items()},
+            "exp_cross_eval": cross["regions"]["page1_(shared_prefix)"],
+            "label_noise_floor": {k: res["label_noise_floor"].get(k)
+                                  for k in ("frames", "pairs", "controls_loss_floor")},
+            "corr_ceiling": res["corr_ceiling"].get("ceilings"),
+            "arms": {k: {m: v[m] for m in ("best_val", "left_err_last", "right_err_last",
+                                           "wall_s")} for k, v in arm_runs.items()},
+            "graft_entry": {"batch": int(args[0].shape[0]), "card_vs_cpu_f32": entry_err,
+                            "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                                     "cudnn": torch.backends.cudnn.allow_tf32},
+                            "tolerance": {"rel": FWD_REL_TOL, "corr": FWD_MIN_CORR}}}
+    emit(line)
+    bad = [k for k, n in want.items() if launches[k] != n]
+    bad += [k for k in ("exp_seed_arms", "exp_row_region") if launches[k] < len(res[k])]
+    if bad:
+        raise AssertionError(f"gather launches {launches}, expected {want} (and an arm's >= 1)")
+    if ck["write_mismatches"] or ck["read_mismatches"] or pa["exactness_mismatches"]:
+        raise AssertionError(f"audits: checksum {ck}, paged audit {pa['exactness_mismatches']}")
+    if ck["row_bytes"] != ROW_BYTES or len(collections) != 3:
+        raise AssertionError(f"row of {ck['row_bytes']} B; collections {collections}")
+    if res["exp_label_structure"]["early_<80k"]["rows"] != PIPELINE_FRAMES or \
+            res["label_noise_floor"]["frames"] != PIPELINE_FRAMES:
+        raise AssertionError("the tools did not read the pipeline's 6,000 frames")
+    if len(arm_runs) != 4 or not all(math.isfinite(v["best_val"]) for v in arm_runs.values()):
+        raise AssertionError(f"arms {list(arm_runs)}")
+    if not all(e["rel_err"] <= FWD_REL_TOL and e["corr"] >= FWD_MIN_CORR
+               for e in entry_err.values()):
+        raise AssertionError(f"graft_entry on the card vs its CPU run: {entry_err}")
+    return line, {"launches": sum(launches.values())}, sin_counts
 
 
 def _probe(module, name: str, timed, sync_call: int, profile_call: int, ticks: int):
@@ -2473,7 +2771,7 @@ def load_sessions_labels(session: str):
 ALONE = {"switches_render": phase_switches_render, "drive_check": phase_drive_check,
          "hash_sinf_check": phase_hash_sinf_check,
          "env_steps_full_size": phase_env_steps_full_size, "profile_step": phase_profile_step,
-         "ablate_step": phase_ablate_step}
+         "ablate_step": phase_ablate_step, "table_audit": phase_table_audit_alone}
 
 
 def main(argv: list) -> int:
@@ -2507,11 +2805,15 @@ def main(argv: list) -> int:
             phase = "full_size"
             line, kernel, table, labels, val_idx = phase_full_size(dev, ckpt)
             emit(line)
-        phase = "train_step_check"
-        phase_train_step_check(dev, table, val_idx)
-        phase = "train_full_size"
-        line, train_kernel = phase_train_full_size(dev, table, labels, val_idx)
-        emit(line)
+            phase = "train_step_check"
+            phase_train_step_check(dev, table, val_idx)
+            phase = "train_full_size"
+            line, train_kernel = phase_train_full_size(dev, table, labels, val_idx)
+            emit(line)
+            phase = "table_audit"
+            _, audit_kernel = phase_table_audit(dev, table)
+            phase = "cross_eval_full_size"
+            cross_eval_line = phase_cross_eval_full_size(dev, ckpt, table, labels)
         del table, labels
         torch.cuda.empty_cache()
         phase = "collect_check"
@@ -2538,6 +2840,8 @@ def main(argv: list) -> int:
             emit(pipeline_line)
             phase = "report_resident"
             resident_line, resident_kernel = phase_report_resident(dev, workdir)
+            phase = "tools_resident"
+            _, tools_kernel, tools_sinf = phase_tools_resident(dev, workdir)
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory(prefix="cilrs_smoke_fused_") as workdir:
             phase = "fused_full_size"
@@ -2558,16 +2862,20 @@ def main(argv: list) -> int:
         phase = "report"
         kernel["launches_by_path"] = {"eval_full_size": kernel["launches"],
                                       "train_full_size": train_kernel.pop("launches"),
+                                      "table_audit": audit_kernel.pop("launches"),
+                                      "cross_eval_full_size": cross_eval_line["gather_launches"],
                                       "collect_full_size": collect_line["gather_launches"],
                                       "drive_full_size": drive_line["gather_launches"],
                                       "pipeline_cli": pipeline_line["gather_launches"],
                                       "env_steps_full_size": bench_line["gather_launches"],
                                       "report_resident": resident_kernel["launches"],
+                                      "tools_resident": tools_kernel["launches"],
                                       "fused_full_size": fused_kernel.pop("launches"),
                                       "fused_sharded_full_size": sharded_line["gather_launches"]}
         kernel["launches"] = sum(kernel["launches_by_path"].values())
         kernel["max_abs_err"] = max(kernel["max_abs_err"], train_kernel.pop("max_abs_err"),
-                                    fused_kernel.pop("max_abs_err"), resident_kernel["max_abs_err"])
+                                    fused_kernel.pop("max_abs_err"), resident_kernel["max_abs_err"],
+                                    audit_kernel.pop("max_abs_err"))
         # The source's kernels on the main paths, every mode: each path's
         # counts by mode, and their sum.
         by_path = {"collect_full_size": collect_line["sin_hash_launches"],
@@ -2576,6 +2884,7 @@ def main(argv: list) -> int:
                    "profile_step": profile_line["sin_hash_launches"],
                    "ablate_step": ablate_line["sin_hash_launches"],
                    "report_resident": resident_line["sin_hash_launches"],
+                   "tools_resident": tools_sinf,
                    "fused_full_size": fused_kernel.pop("sin_hash_launches")}
         sinf_kernel["launches_by_path"] = by_path
         sinf_kernel["launches"] = sum(sum(c.values()) for c in by_path.values())
@@ -2595,6 +2904,7 @@ def main(argv: list) -> int:
             for name, t in bench_line["hash_kernels_at_128_envs"]["times"].items()}
         kernel.update(train_kernel)
         kernel.update(fused_kernel)
+        kernel.update(audit_kernel)
         emit({"kernels": [kernel, sinf_kernel]})
         print(card_line(), flush=True)
     except Exception as e:  # a failed phase ends the run: report it, no ok line

@@ -91,6 +91,14 @@ def labels_dataset(labels: dict) -> DriveDataset:
     )
 
 
+def unwrap_monolithic(table: dict) -> dict:
+    """A one-page table with ``images`` rebound from the 1-tuple to the bare
+    page, for the diagnostic tools that read raw rows of one physical table
+    (``tools/exp_checksum.py``); the loaders take the tuple."""
+    (page,) = table["images"]
+    return {**table, "images": page}
+
+
 def _index_tensor(idx: np.ndarray, dev: torch.device) -> torch.Tensor:
     """int32 indices on ``dev``. On the card they go through pinned memory
     without a sync: a pageable copy would wait for the work already queued."""

@@ -467,3 +467,110 @@ def test_two_ranks_on_one_card_over_gloo(cuda_device, tmp_path):
         assert abs(got[0]["history"][0][k] - one[k]) < 0.03 * max(1.0, abs(one[k]))
     for k, v in got[0]["state"].items():
         assert torch.equal(v, got[1]["state"][k]), k
+
+
+# ---------------------------------------------------------------------------
+# The ported tools' reads on the card (tools/exp_*, graft_entry)
+# ---------------------------------------------------------------------------
+
+FRAME_ROW = 52_800  # an 88x200x3 u8 frame
+
+
+def _frame_table(dev, page_rows: int, logical: tuple, slack: int = 29, seed: int = 7) -> dict:
+    """A paged u8 table of full-size frames on ``dev``: ``logical`` rows a
+    page, each page with ``slack`` rows after them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pages = tuple(torch.randint(0, 256, (n + slack, FRAME_ROW), generator=g, device=dev,
+                                dtype=torch.uint8) for n in logical)
+    n = sum(logical)
+    rng = np.random.RandomState(seed)
+    return {"images": pages, "page_rows": page_rows, "image_shape": (88, 200, 3),
+            "speed": torch.from_numpy(rng.uniform(0, 0.4, n).astype(np.float32)).to(dev),
+            "command": torch.from_numpy(rng.randint(0, 4, n).astype(np.int32)).to(dev),
+            "controls": torch.from_numpy(rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)).to(dev)}
+
+
+def _on_cpu(table: dict) -> dict:
+    return {k: (tuple(p.cpu() for p in v) if k == "images" else
+                v.cpu() if torch.is_tensor(v) else v) for k, v in table.items()}
+
+
+def test_audit_checksums_on_card_across_a_page_boundary(cuda_device):
+    """exp_checksum's sums through the gather kernel over two pages (128
+    rows a launch, one launch across the boundary) against plain slices on
+    the CPU, exact; the read audit finds no row."""
+    from cilrs_tpu_torch.tools import exp_checksum
+
+    table = _frame_table(cuda_device, 300, (300, 250))
+    pages, cpu_pages, n = table["images"], _on_cpu(table)["images"], 550
+    before = tg.gather_rows_paged.launches
+    s_g, h_g = exp_checksum.checksums_gather(pages, 300, n, 128)
+    assert tg.gather_rows_paged.launches == before + 5
+    s_d, h_d = exp_checksum.checksums_slice(cpu_pages, 300, n, 128)
+    np.testing.assert_array_equal(s_g, s_d)
+    np.testing.assert_array_equal(h_g, h_d)
+    assert len(exp_checksum.read_audit(pages, 300, n, 128)) == 0
+
+
+def test_paged_audit_sweep_on_card_matches_cpu(cuda_device):
+    from cilrs_tpu_torch.tools import exp_paged_audit
+
+    table = _frame_table(cuda_device, 300, (300, 250), seed=8)
+    bad, means = exp_paged_audit.sweep(table, 550, 128)
+    bad_cpu, means_cpu = exp_paged_audit.sweep(_on_cpu(table), 550, 128)
+    assert bad == bad_cpu == 0
+    np.testing.assert_array_equal(means, means_cpu)
+
+
+def test_image_stats_on_card_match_cpu(cuda_device):
+    """exp_image_stats's picks read through the kernel (one launch a cell)
+    give the CPU's statistics exactly."""
+    from cilrs_tpu_torch.tools import exp_image_stats
+
+    table = _frame_table(cuda_device, 300, (300, 250), seed=9)
+    labels = {"env": (np.arange(550) % 16).astype(np.int32)}
+    before = tg.gather_rows_paged.launches
+    got = exp_image_stats.image_stats(table, labels, 20)
+    assert tg.gather_rows_paged.launches == before + 5
+    assert got == exp_image_stats.image_stats(_on_cpu(table), labels, 20)
+
+
+def test_cross_eval_on_card_matches_collect_predictions(cuda_device):
+    """exp_cross_eval's groups (one launch, the last group padded) against
+    collect_predictions_resident on the same rows and model, bf16 on the
+    card: within 1e-5."""
+    from cilrs_tpu_torch.evaluation.report import collect_predictions_resident
+    from cilrs_tpu_torch.models.cilrs import CILRS
+    from cilrs_tpu_torch.tools import exp_cross_eval
+
+    table = _frame_table(cuda_device, 700, (700, 510), seed=10)
+    model = CILRS(dropout=0.0, stage_sizes=(1, 1, 1, 1)).to(
+        cuda_device, memory_format=torch.channels_last).eval()
+    labels = {k: v.cpu().numpy() for k, v in table.items() if k in ("speed", "command", "controls")}
+    before = tg.gather_rows_paged.launches
+    preds = exp_cross_eval.score_rows(model, table, 1210)
+    assert tg.gather_rows_paged.launches == before + 1 and preds.shape == (1200, 3)
+    ref, _, _ = collect_predictions_resident(model, table, labels, np.arange(1200), 120,
+                                             tc.TrainConfig())
+    np.testing.assert_allclose(preds, ref[:, :3], rtol=0, atol=1e-5)
+
+
+def test_graft_entry_on_card_matches_its_cpu_run(cuda_device):
+    """graft_entry.entry() on the card (bf16 trunk, float32 heads with TF32
+    off) against entry("cpu") (float32) on the same weights and inputs:
+    full_size's bf16 tolerance, 5% of the largest output and a correlation
+    of 0.99."""
+    from cilrs_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry(cuda_device)
+    cpu_fn, cpu_args = graft_entry.entry("cpu")
+    assert all(a.device.type == "cuda" for a in args) and [a.shape for a in args] == [
+        a.shape for a in cpu_args]
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    g = torch.Generator().manual_seed(0)
+    x = (torch.rand(args[0].shape, generator=g) * 4 - 2, torch.rand(args[1].shape, generator=g),
+         torch.randint(0, 4, args[2].shape, generator=g, dtype=torch.int32))
+    for got, want in zip(fn(*(t.to(cuda_device) for t in x)), cpu_fn(*x)):
+        got = got.float().cpu()
+        assert (got - want).abs().max() <= 0.05 * want.abs().max()
+        assert np.corrcoef(got.flatten().numpy(), want.flatten().numpy())[0, 1] >= 0.99
