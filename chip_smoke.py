@@ -58,6 +58,24 @@ end to end at the full width of the repo's model (CILRS, ResNet-34 trunk,
      of the table (1,468 batches of 120, 30 launches of 50 batches) with
      cli_report's checkpoint, its predictions against
      collect_predictions_resident's on the same rows, frames/s;
+  6c. probes_full_size: the five train/eval-group probes at full width,
+     under cuDNN's deterministic algorithms: on that table
+     ``tools.exp_train_gather_probe`` (4 of its 50 groups; every batch's
+     image and label checksum inside the train group equal to its one-batch
+     gather's and the host labels'), ``exp_eval_page_mutation`` (2 of 6
+     rounds; each page's hash unchanged by the eval and train groups) and
+     ``exp_page2_identity`` on page 1 (88,128 rows) with a clone as page 2
+     (2 of 30 groups; runs A, A' = A again, B, C bit for bit equal); then on
+     a synthetic one-page table of 200,000 rows (10.56 GB, past 2^33 B; night
+     rows darkened) ``exp_table_integrity``'s row means and oracle (49
+     launches, 0 mismatches), ``exp_200k_bisect``'s label analysis,
+     ``exp_tail_poison``'s pixel statistics and contact sheet (a PNG),
+     ``exp_eval_sideeffect`` (3 of 30 rounds, --interleave-train; weights
+     and outputs unchanged) and ``exp_dispatch_divergence`` against the
+     150,000-row prefix copied to a 7.92 GB table of its own (checksums,
+     losses and fingerprint equal); K1 at 4,096 rows on both tables against
+     its bound and index_select; the launches by tool, each count exact
+     (also alone: ``--phase probes_full_size``);
   7. collect_check: the closed-loop simulator in collect mode (Town01, 4
      envs, clear and night, 12 vehicles, 6 walkers, 88x200 camera) for 50
      ticks on the card and on the CPU from the same fleet and the same
@@ -103,10 +121,10 @@ end to end at the full width of the repo's model (CILRS, ResNet-34 trunk,
  11c. ablate_step: ``tools.ablate_step`` at bench shape, 1 warm-up and 2
      timed chunks an arm, every patch restored, the launches counted;
  12. benchmark_cli: ``python -m cilrs_tpu_torch.cli.benchmark --duration
-     20`` on the checkpoint directory collect_cli trained, all five weathers
-     (markdown, JSON, event files);
+     10`` (cut from 20) on the checkpoint directory collect_cli trained,
+     all five weathers (markdown, JSON, event files);
  13. pipeline_cli: ``python -m cilrs_tpu_torch.cli.pipeline --resident
-     --frames 6000 --envs 16 --epochs 1 --bench-duration 10``: on-card
+     --frames 6000 --envs 16 --epochs 1 --bench-duration 5`` (cut from 10): on-card
      collection into the resident table, training and the offline report
      from it (the gather kernel's launches counted) and the benchmark;
  13a. report_resident: ``tools.report_resident`` on that checkpoint at the
@@ -123,6 +141,18 @@ end to end at the full width of the repo's model (CILRS, ResNet-34 trunk,
      --seeds 43 137`` and ``exp_row_region --epochs 1 --train-rows 3000``;
      the gather kernel's launches by tool; ``graft_entry.entry()`` on the
      card against its CPU run;
+ 13c. experiments_resident: the 200k-table experiments' mains at the
+     pipeline's 6,000 frames, one epoch an arm, in tools_resident's cached
+     collections (two new ones: exp_200k_bisect's with its session CSV, and
+     the fresh holdout of exp_big_table_control and exp_tail_poison, cut
+     from 33,000 frames to 6,000):
+     ``exp_band_arms --bands 1000:3000 3000:5000``,
+     ``exp_big_table_control --truncate 4500``, ``exp_200k_bisect --subset
+     3000``, ``exp_tail_poison --prefix-frames 4500``,
+     ``exp_table_integrity``; K1's launches by tool against the count of
+     their train and eval groups, each collection's wall, each arm's best
+     val and wall, each report's steer MAE (also alone: ``--phase
+     experiments_resident``, which collects the seed-0 collections itself);
  14. fused_full_size: ``python -m cilrs_tpu_torch.cli.fused`` at full width
      (Town01, 32 envs, 12 vehicles, 6 walkers, a 65,536-frame ring, 20 ticks
      and 4 train steps a chunk, batch 120, the full-width CILRS in bf16)
@@ -200,7 +230,7 @@ from cilrs_tpu_torch.cli import pipeline as pipeline_cli
 from cilrs_tpu_torch.cli import report as report_cli
 from cilrs_tpu_torch.cli import train as train_cli
 from cilrs_tpu_torch.cli.common import build_map
-from cilrs_tpu_torch.config import WEATHER_NAMES, load_train_config
+from cilrs_tpu_torch.config import SPEED_NORM_FACTOR, WEATHER_NAMES, load_train_config
 from cilrs_tpu_torch.core.state import make_world
 from cilrs_tpu_torch.data import prepare as prepare_mod
 from cilrs_tpu_torch.data.collect import HOST_KEYS, MIN_SPEED_KMH, make_collect_fleet
@@ -236,13 +266,23 @@ from cilrs_tpu_torch import graft_entry
 from cilrs_tpu_torch.tools import ablate_step as ablate_mod
 from cilrs_tpu_torch.tools import arms as arms_mod
 from cilrs_tpu_torch.tools import corr_ceiling as corr_ceiling_mod
+from cilrs_tpu_torch.tools import exp_200k_bisect as bisect_mod
+from cilrs_tpu_torch.tools import exp_band_arms as band_arms_mod
+from cilrs_tpu_torch.tools import exp_big_table_control as big_table_mod
 from cilrs_tpu_torch.tools import exp_checksum as checksum_mod
 from cilrs_tpu_torch.tools import exp_cross_eval as cross_eval_mod
+from cilrs_tpu_torch.tools import exp_dispatch_divergence as divergence_mod
+from cilrs_tpu_torch.tools import exp_eval_page_mutation as page_mutation_mod
+from cilrs_tpu_torch.tools import exp_eval_sideeffect as sideeffect_mod
 from cilrs_tpu_torch.tools import exp_image_stats as image_stats_mod
 from cilrs_tpu_torch.tools import exp_label_structure as label_structure_mod
+from cilrs_tpu_torch.tools import exp_page2_identity as page2_mod
 from cilrs_tpu_torch.tools import exp_paged_audit as paged_audit_mod
 from cilrs_tpu_torch.tools import exp_row_region as row_region_mod
 from cilrs_tpu_torch.tools import exp_seed_arms as seed_arms_mod
+from cilrs_tpu_torch.tools import exp_table_integrity as integrity_mod
+from cilrs_tpu_torch.tools import exp_tail_poison as tail_poison_mod
+from cilrs_tpu_torch.tools import exp_train_gather_probe as gather_probe_mod
 from cilrs_tpu_torch.tools import label_noise_floor as noise_floor_mod
 from cilrs_tpu_torch.tools import profile_step as profile_step_mod
 from cilrs_tpu_torch.tools import report_resident as report_resident_mod
@@ -327,8 +367,12 @@ DRIVE_VEHICLES, DRIVE_WALKERS = 40, 5
 DRIVE_CHECK_TICKS, DRIVE_CHECK_WEATHERS = 60, (0, 1, 3, 4)  # clear, rain, night, hardrain
 DRIVE_TIMED_CHUNKS = 5
 BENCH_SPAWN, BENCH_DESTINATION = 249, 219
-BENCH_CLI_DURATION = 20
-PIPELINE_FRAMES, PIPELINE_BENCH_DURATION = 6000, 10
+# Simulated seconds a weather of benchmark_cli and of pipeline_cli's
+# benchmark, cut from the _UNCUT values to keep the script inside its time
+# limit with probes_full_size and experiments_resident (1,113 s uncut on an
+# H100; the walls by phase are in PERF.md).
+BENCH_CLI_DURATION, BENCH_CLI_DURATION_UNCUT = 10, 20
+PIPELINE_FRAMES, PIPELINE_BENCH_DURATION, PIPELINE_BENCH_DURATION_UNCUT = 6000, 5, 10
 # report_resident re-collects the pipeline's table and scores the pipeline's
 # val rows with its best slot: the report equals the pipeline's own, up to
 # the last bits of a float32 sum if cuDNN took another algorithm.
@@ -428,6 +472,22 @@ CROSS_EVAL_TOL = 1e-5
 # rows each (its default of 80,000 would make both arms every row).
 TOOL_ARM_EPOCHS, TOOL_ARM_SEEDS, TOOL_TRAIN_ROWS = 1, (43, 137), 3000
 CHECKSUM_SMALL = 3000
+# probes_full_size: the probes on the full-size table with their groups and
+# rounds cut (exp_train_gather_probe 50 -> 4 groups, exp_eval_page_mutation
+# 6 -> 2 rounds, exp_page2_identity 30 -> 2 groups on page 1, its 88,128
+# rows), then on a synthetic one-page table of 200,000 rows (10.56 GB, past
+# 2^33 B): exp_eval_sideeffect 30 -> 3 rounds with --interleave-train, and
+# exp_dispatch_divergence against its 150,000-row prefix copied to a table of
+# its own.
+PROBE_GROUPS, PROBE_ROUNDS, PAGE2_GROUPS = 4, 2, 2
+BIG_FRAMES, DIVERGENCE_SMALL, SIDEEFFECT_ROUNDS = 200_000, 150_000, 3
+BIG_FILL_ROWS = 8192  # rows of the synthetic table filled at once
+# experiments_resident: the 200k-table tools' mains at the pipeline's 6,000
+# frames, one epoch an arm (their defaults: 176,256-200,000 frames, 6-24 epochs).
+# The fresh holdout cut from the tools' 33,000 frames (arms.FRESH_FRAMES),
+# the phase's largest cost, to 6,000.
+EXPERIMENT_EPOCHS, EXPERIMENT_BANDS, EXPERIMENT_FRESH = 1, ("1000:3000", "3000:5000"), 6000
+EXPERIMENT_TRUNCATE, EXPERIMENT_SUBSET, EXPERIMENT_PREFIX = 4500, 3000, 4500
 
 
 _START = time.time()
@@ -1258,6 +1318,194 @@ def phase_cross_eval_full_size(dev, ckpt: str, table: dict, labels: dict) -> dic
     return line
 
 
+def big_synthetic_table(dev) -> tuple[dict, dict]:
+    """A one-page table of 200,000 full-width u8 frames on the card (10.56 GB,
+    past 2^33 B): random bytes from seed 42, the rows of night envs (env
+    k % 16 of row k, weather env % 5 = 3) divided by 4 as the night shader
+    darkens them; the labels of full_size_table at this size plus env, tick
+    (k // 16), speed_kmh and obstacle_dist, as host numpy."""
+    g = torch.Generator(device=dev).manual_seed(42)
+    rows = np.arange(BIG_FRAMES)
+    env, tick = (rows % 16).astype(np.int32), (rows // 16).astype(np.int32)
+    night = torch.from_numpy((env % 5) == 3).to(dev)
+    page = torch.empty((BIG_FRAMES, ROW_BYTES), dtype=torch.uint8, device=dev)
+    for lo in range(0, BIG_FRAMES, BIG_FILL_ROWS):
+        blk = page[lo:lo + BIG_FILL_ROWS].random_(0, 256, generator=g)
+        m = night[lo:lo + BIG_FILL_ROWS]
+        blk[m] = blk[m] // 4
+    lab = make_synthetic_dataset(BIG_FRAMES, seed=42, h=1, w=1)  # labels only
+    rng = np.random.RandomState(42)
+    labels = {"speed": lab.speed_norm, "command": lab.command, "controls": lab.controls,
+              "env": env, "tick": tick, "speed_kmh": lab.speed_norm * SPEED_NORM_FACTOR,
+              "obstacle_dist": rng.uniform(2.0, 60.0, BIG_FRAMES).astype(np.float32)}
+    table = {"images": (page,), "page_rows": BIG_FRAMES, "image_shape": FRAME_SHAPE,
+             **{k: torch.from_numpy(labels[k]).to(dev) for k in ("speed", "command", "controls")}}
+    return table, labels
+
+
+def _valid_png(path: str) -> tuple[int, int]:
+    """(height, width) of an 8-bit RGB PNG whose pixel data inflates to its size."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    w, h, depth, color = struct.unpack(">IIBB", data[16:26])
+    n = struct.unpack(">I", data[33:37])[0]
+    raw = zlib.decompress(data[41:41 + n])
+    if (depth, color) != (8, 2) or data[37:41] != b"IDAT" or len(raw) != h * (1 + 3 * w):
+        raise AssertionError(f"{path}: {w}x{h}, depth {depth}, color {color}, {len(raw)} B")
+    return h, w
+
+
+def phase_probes_full_size(dev, table: dict, labels: dict, workdir: str) -> tuple[dict, dict]:
+    """The five probes and the 200k-table analyses on the card at full width
+    (the cuts in PROBE_GROUPS, PROBE_ROUNDS, PAGE2_GROUPS, SIDEEFFECT_ROUNDS):
+    on the full-size two-page table exp_train_gather_probe (every in-group
+    checksum equal to its one-batch and host references), exp_eval_page_mutation
+    (every page hash unchanged) and exp_page2_identity on page 1 with a
+    clone as page 2 (A == A' == B == C bit for bit); then on a 200,000-row
+    page past 2^33 B exp_table_integrity's row means and oracle (49 launches,
+    0 mismatches), exp_200k_bisect's label analysis, exp_tail_poison's pixel
+    statistics and contact sheet, exp_eval_sideeffect and
+    exp_dispatch_divergence against the 150,000-row prefix copied to a table
+    of its own. K1 at 4,096 rows on both tables against its bound and
+    index_select; its launches and the wall by tool, each count exact."""
+    cfg = load_train_config()
+    res, launches, want, walls = {}, {}, {}, {}
+
+    def run(name, fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        gather_rows_paged.launches = 0
+        t0 = time.time()
+        res[name] = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        walls[name] = time.time() - t0
+        launches[name] = gather_rows_paged.launches
+        return res[name]
+
+    page_rows = table["page_rows"]
+    gp = run("exp_train_gather_probe", gather_probe_mod.probe, table, labels, cfg, PROBE_GROUPS,
+             dev)
+    want["exp_train_gather_probe"] = gp["groups_probed"] + gp["batches_probed"]
+    pm = run("exp_eval_page_mutation", page_mutation_mod.mutation, table, labels, cfg,
+             PROBE_ROUNDS, dev)
+    want["exp_eval_page_mutation"] = PROBE_ROUNDS * (pm["eval_groups_per_round"] + 1)
+    page = table["images"][0]
+    page2 = page.clone()
+    p2 = run("exp_page2_identity", page2_mod.identity, page, page2, table, labels, page_rows, cfg,
+             PAGE2_GROUPS, dev, runs=("A", "A'", "B", "C"))
+    want["exp_page2_identity"] = 4 * p2["groups"]
+    del page2
+    rng = np.random.RandomState(0)
+    idx = np.sort(rng.choice(FULL_FRAMES, AUDIT_BATCH, replace=False)).astype(np.int32)
+    k1_small = _gather_times(table["images"], torch.from_numpy(idx).to(dev), page_rows)
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    big, big_labels = big_synthetic_table(dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    (big_page,) = big["images"]
+    one = {**big, "images": big_page}
+    ti = run("exp_table_integrity", integrity_mod.integrity, big, big_labels["env"], BIG_FRAMES,
+             AUDIT_BATCH)
+    want["exp_table_integrity"] = -(-BIG_FRAMES // AUDIT_BATCH)
+    analysis = run("exp_200k_bisect", bisect_mod.label_analysis, big_labels)
+    want["exp_200k_bisect"] = 0
+    sheet = os.path.join(workdir, "turn_frames_early_vs_late.png")
+    pixel = run("exp_tail_poison", lambda: (tail_poison_mod.pixel_band_stats(one, big_labels),
+                                            tail_poison_mod.turn_contact_sheet(one, big_labels,
+                                                                               sheet)))
+    want["exp_tail_poison"] = len(pixel[0]) + 1
+    sheet_hw = _valid_png(sheet)
+    se = run("exp_eval_sideeffect", sideeffect_mod.sideeffect, one, cfg, BIG_FRAMES,
+             SIDEEFFECT_ROUNDS, 25, True, dev)
+    want["exp_eval_sideeffect"] = 1 + 3 * SIDEEFFECT_ROUNDS + 2
+    small_page = big_page[:DIVERGENCE_SMALL].clone()
+    idxs = np.random.RandomState(7).randint(0, DIVERGENCE_SMALL, size=(25, 120)).astype(np.int32)
+    phases = run("exp_dispatch_divergence", lambda: (
+        divergence_mod.run_phase({**one, "images": small_page}, idxs, cfg, dev),
+        divergence_mod.run_phase(one, idxs, cfg, dev)))
+    want["exp_dispatch_divergence"] = 2
+    divergence = divergence_mod.compare(*phases)
+    small_bytes = small_page.numel()
+    del small_page
+    first_past = -(-2 ** 33 // ROW_BYTES)
+    idx = np.sort(rng.choice(BIG_FRAMES, AUDIT_BATCH, replace=False)).astype(np.int32)
+    k1_big = _gather_times((big_page,), torch.from_numpy(idx).to(dev), BIG_FRAMES)
+    k1_big["rows_past_2^33_bytes"] = int((idx >= first_past).sum())
+    big_bytes = big_page.numel()
+    del big, one, big_page
+    torch.cuda.empty_cache()
+
+    line = {"phase": "probes_full_size", "ok": True,
+            "cuts": {"exp_train_gather_probe_groups": PROBE_GROUPS,
+                     "exp_eval_page_mutation_rounds": PROBE_ROUNDS,
+                     "exp_page2_identity_groups": PAGE2_GROUPS,
+                     "exp_eval_sideeffect_rounds": SIDEEFFECT_ROUNDS,
+                     "synthetic_200k_table": "random u8 frames, not a collection"},
+            "deterministic": {"cudnn.deterministic": True, "cudnn.benchmark": False},
+            "gather_launches": launches, "expected_launches": want, "wall_s": walls,
+            "exp_train_gather_probe": {k: gp[k] for k in (
+                "groups_probed", "batches_probed", "mismatch_count", "first_group_losses")},
+            "exp_eval_page_mutation": {"init": pm["init"], "mutated": pm["mutated"],
+                                       "eval_groups_per_round": pm["eval_groups_per_round"]},
+            "exp_page2_identity": {k: v for k, v in p2.items() if k != "lossC_head"},
+            "big_table": {"frames": BIG_FRAMES, "page_bytes": big_bytes,
+                          "rows_past_2^33_bytes": BIG_FRAMES - first_past, "build_s": build_s,
+                          "prefix_table_bytes": small_bytes},
+            "exp_table_integrity": {k: ti[k] for k in ("total_mismatch", "threshold",
+                                                       "row_bytes", "wrap_row")},
+            "exp_200k_bisect_bands": len(analysis["bands"]),
+            "exp_tail_poison": {"pixel_band_stats": pixel[0], "sheet_hw": sheet_hw,
+                                "sheet_rows": len(pixel[1])},
+            "exp_eval_sideeffect": se,
+            "exp_dispatch_divergence": {**divergence, "checksums_head": phases[0]["checksums"][:3],
+                                        "params_fingerprint": phases[0]["params_fingerprint"]},
+            "gather_4096_rows_9.31GB_2_pages": k1_small,
+            "gather_4096_rows_10.56GB_1_page": k1_big}
+    emit(line)
+    bad = [k for k, n in want.items() if launches[k] != n]
+    if bad:
+        raise AssertionError(f"gather launches {launches}, expected {want}")
+    if gp["mismatch_count"] or gp["batches_probed"] != PROBE_GROUPS * STEPS_PER_CALL:
+        raise AssertionError(f"train-group checksums: {gp['mismatches'][:5]}")
+    if pm["mutated"] or pm["eval_groups_per_round"] < 1:
+        raise AssertionError(f"page hashes: {pm['rounds']}")
+    if not (p2["params_equal_AA2"] and p2["losses_equal_AA2"]):
+        raise AssertionError(f"A != A': the deterministic settings leave a floor ({p2})")
+    if not all(p2[f"{q}_{pair}"] for q in ("params_equal", "losses_equal")
+               for pair in ("AB", "BC")):
+        raise AssertionError(f"page-2 identity: {p2}")
+    if ti["total_mismatch"] or ti["row_bytes"] != ROW_BYTES:
+        raise AssertionError(f"table integrity over {BIG_FRAMES} rows: {ti}")
+    if sum(b["frames"] for b in analysis["bands"]) != BIG_FRAMES or len(pixel[1]) != 16:
+        raise AssertionError(f"label analysis {len(analysis['bands'])} bands, sheet {pixel[1]}")
+    if not (se["params_unchanged"] and se["safe_eval_stable"] and se["crossing_deterministic"]
+            and se["crossing_rows_past_2^33_bytes"] > 0.15):
+        raise AssertionError(f"eval side effect: {se}")
+    if not divergence["all_equal"]:
+        raise AssertionError(f"dispatch divergence: {divergence}")
+    if k1_big["max_abs_err"] != 0.0 or not k1_big["rows_past_2^33_bytes"]:
+        raise AssertionError(f"K1 on the 10.56 GB page: {k1_big}")
+    kernel = {f"{k}_4096_rows_10.56GB_page": k1_big[v] for k, v in (
+        ("ms", "kernel_ms"), ("ms_queued", "kernel_ms_queued"), ("plain_ms", "plain_ms"),
+        ("library_ms", "index_select_ms"), ("bound_ms", "bound_ms"))}
+    return line, {"launches": sum(launches.values()), "max_abs_err": k1_big["max_abs_err"],
+                  **kernel}
+
+
+def phase_probes_full_size_alone(dev) -> dict:
+    """probes_full_size on its own (``--phase probes_full_size``): the
+    full-size table built as phase full_size builds it."""
+    table, labels = full_size_table(dev)
+    with tempfile.TemporaryDirectory(prefix="cilrs_smoke_probes_") as workdir:
+        return phase_probes_full_size(dev, table, labels, workdir)[0]
+
+
 def profile_ops(fn, ticks: int) -> dict:
     """One call of fn (``ticks`` simulator ticks) under torch.profiler: busy
     share of the wall under the profiler, device time and device activities
@@ -1673,6 +1921,7 @@ def phase_benchmark_cli(dev, workdir: str, ckpt_dir: str) -> dict:
     if files != sorted(f"events_{w}.json" for w in WEATHER_NAMES):
         raise AssertionError(f"event files {files}")
     return {"phase": "benchmark_cli", "ok": True, "duration_s": BENCH_CLI_DURATION,
+            "cuts": {"duration_s": [BENCH_CLI_DURATION_UNCUT, BENCH_CLI_DURATION]},
             "wall_s": wall, "markdown_rows": rows,
             "scores": {w: {k: s[k] for k in ("overall", "grade", "total_distance_m",
                                              "collisions", "teleports", "total_frames")}
@@ -1710,6 +1959,8 @@ def phase_pipeline_cli(dev, workdir: str) -> dict:
         raise AssertionError(f"pipeline: {len(ds)} frames, report {report['num_samples']}, "
                              f"benchmark {list(bench)}")
     return {"phase": "pipeline_cli", "ok": True, "frames": PIPELINE_FRAMES, "envs": SIM_ENVS,
+            "cuts": {"bench_duration_s": [PIPELINE_BENCH_DURATION_UNCUT,
+                                          PIPELINE_BENCH_DURATION]},
             "wall_s": wall, "timing": timing, "gather_launches": launches,
             "expected_launches": want, "val_rows": len(val_idx),
             "report_steer_mae": report["steer"]["mae"],
@@ -1919,23 +2170,32 @@ def phase_report_resident(dev, workdir: str) -> tuple[dict, dict]:
 
 
 @contextlib.contextmanager
-def cached_collections(modules):
+def cached_collections(modules, cache: dict):
     """The tools' ``collect_resident`` (looked up in each of ``modules``)
-    served from a cache keyed by its arguments and the big-table switch: the
-    first call of a key collects, the others reuse its table (the simulator
-    is deterministic; report_resident shows that a re-collection equals the
-    pipeline's). Yields the list of real collections, with their walls."""
+    served from ``cache``, keyed by its arguments, the big-table switch and,
+    for a collection of more than one page, the continuous-collect switch
+    (it changes only the session at a page's rollover): the first call of a
+    key collects, the others reuse its table (the simulator is
+    deterministic; report_resident shows that a re-collection equals the
+    pipeline's). Yields the list of the real collections made inside, with
+    their walls."""
     real = modules[0].collect_resident
-    cache, made = {}, []
+    made = []
 
     def collect(net, num_frames, **kw):
-        key = (num_frames, os.environ.get(checksum_mod.BIG_TABLE_SWITCH),
+        slack = kw.get("num_envs", 64) * kw.get("chunk_steps", 50)
+        paged = paged_layout(num_frames, ROW_BYTES, slack)[0] > 1
+        switches = tuple(os.environ.get(k) for k in (checksum_mod.BIG_TABLE_SWITCH,
+                                                      band_arms_mod.CONTINUOUS_SWITCH))
+        key = (num_frames, switches[0], switches[1] if paged else None,
                *sorted((k, str(v)) for k, v in kw.items()))
         if key not in cache:
             t0 = time.time()
             cache[key] = real(net, num_frames, **kw)
             torch.cuda.synchronize()
-            made.append({"frames": num_frames, "big_table_switch": key[1],
+            made.append({"frames": num_frames, "seed": kw.get("seed"),
+                         "switches": dict(zip(("big_table", "continuous"), switches)),
+                         "session_csv": kw.get("output_dir") is not None,
                          "pages": len(cache[key][0]["images"]), "wall_s": time.time() - t0})
         return cache[key]
 
@@ -1949,11 +2209,12 @@ def cached_collections(modules):
             m.collect_resident = fn
 
 
-def phase_tools_resident(dev, workdir: str) -> tuple[dict, dict, dict]:
+def phase_tools_resident(dev, workdir: str, cache: dict) -> tuple[dict, dict, dict]:
     """Each ported tool's main on pipeline_cli's collection (6,000 frames,
     seed 0, 16 envs; the tools' own defaults otherwise) and on its session
     CSV and checkpoint: the audits' mismatches, K1's launches by tool, and
-    graft_entry's forward on the card against its CPU run."""
+    graft_entry's forward on the card against its CPU run. The collections
+    stay in ``cache`` for experiments_resident."""
     work = os.path.join(workdir, "pipeline")
     out_dir = os.path.join(workdir, "tools")
     os.makedirs(out_dir)
@@ -1971,7 +2232,7 @@ def phase_tools_resident(dev, workdir: str) -> tuple[dict, dict, dict]:
     out = lambda name: ["--out", os.path.join(out_dir, f"{name}.json")]
     reset_sinf_launches()
     with cached_collections([checksum_mod, paged_audit_mod, image_stats_mod, label_structure_mod,
-                             cross_eval_mod, arms_mod]) as collections:
+                             cross_eval_mod, arms_mod], cache) as collections:
         run("exp_checksum", checksum_mod.main,
             ["--small", str(CHECKSUM_SMALL), "--big", str(PIPELINE_FRAMES), "--envs",
              str(SIM_ENVS), "--seed", "0", *out("checksum")])
@@ -2056,6 +2317,158 @@ def phase_tools_resident(dev, workdir: str) -> tuple[dict, dict, dict]:
                for e in entry_err.values()):
         raise AssertionError(f"graft_entry on the card vs its CPU run: {entry_err}")
     return line, {"launches": sum(launches.values())}, sin_counts
+
+
+def loop_launches(ds, cfg, max_train_frames=None, train_row_mask=None, **_) -> int:
+    """K1 launches of one ``train`` from a resident table read in place
+    (neither a cap and a mask together, nor early stopping): each epoch one a
+    group of STEPS_PER_CALL train steps, and for each val pass (the EMA's and
+    the raw iterate's) one a group of EVAL_GROUP_BATCHES batches."""
+    t = cfg.training
+    train_idx, val_idx = stratified_split(ds, t.val_fraction, t.seed)
+    n = len(train_idx)
+    if max_train_frames is not None:
+        n = min(n, max_train_frames)
+    if train_row_mask is not None:
+        n = int(train_row_mask[train_idx].sum())
+    spe = max(1, n // t.batch_size)
+    val_batches = max(1, len(val_idx) // t.batch_size)
+    passes = 2 if t.ema_eval else 1
+    return t.epochs * (-(-spe // STEPS_PER_CALL)
+                       + passes * -(-val_batches // EVAL_GROUP_BATCHES))
+
+
+@contextlib.contextmanager
+def counted_launches(expected: dict, current: list):
+    """Adds to ``expected[current[0]]`` the K1 launches each ``train`` of the
+    arm tools (``loop_launches``) and each report's
+    ``collect_predictions_resident`` (one a group of GROUP_BATCHES batches)
+    will make, then calls it."""
+    def wrap(mod, name, count):
+        real = getattr(mod, name)
+
+        def counted(*args, **kwargs):
+            expected[current[0]] += count(*args, **kwargs)
+            return real(*args, **kwargs)
+        setattr(mod, name, counted)
+        return mod, name, real
+
+    report = lambda model, table, labels, idx, batch, cfg: -(-len(idx) // (batch * GROUP_BATCHES))
+    saved = [wrap(m, "train", loop_launches)
+             for m in (arms_mod, big_table_mod, bisect_mod, tail_poison_mod)]
+    saved.append(wrap(arms_mod, "collect_predictions_resident", report))
+    try:
+        yield
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def phase_experiments_resident(dev, workdir: str, cache: dict) -> tuple[dict, dict, dict]:
+    """The 200k-table experiments' mains at the pipeline's 6,000 frames (seed
+    0, 16 envs), one epoch an arm, the fresh holdout cut to 6,000 frames
+    (EXPERIMENT_FRESH), in ``cache``'s collections (the seed-0
+    collections tools_resident made, with and without the big-table switch,
+    are reused: one page, so the continuous-collect switch changes nothing;
+    each new one is made once: exp_200k_bisect's with its session CSV, and
+    the fresh holdout that exp_big_table_control and exp_tail_poison
+    share): K1's launches by tool
+    against their count, each collection's wall, each arm's best val and
+    wall, each report's steer MAE."""
+    out_dir = os.path.join(workdir, "experiments")
+    os.makedirs(out_dir)
+    base = ["--frames", str(PIPELINE_FRAMES), "--device", str(dev)]
+    epochs = ["--epochs", str(EXPERIMENT_EPOCHS)]
+    res, launches, walls, want = {}, {}, {}, {}
+    current = [None]
+    cached = bool(cache)
+
+    def run(name, main, argv):
+        current[0] = name
+        want[name] = 0
+        gather_rows_paged.launches = 0
+        t0 = time.time()
+        res[name] = main(base + argv)
+        torch.cuda.synchronize()
+        walls[name] = time.time() - t0
+        launches[name] = gather_rows_paged.launches
+
+    work = lambda name: ["--workdir", os.path.join(out_dir, name)]
+    reset_sinf_launches()
+    fresh_frames = arms_mod.FRESH_FRAMES
+    arms_mod.FRESH_FRAMES = EXPERIMENT_FRESH
+    try:
+        with cached_collections([bisect_mod, tail_poison_mod, big_table_mod, integrity_mod,
+                                 arms_mod], cache) as collections, \
+                counted_launches(want, current):
+            run("exp_band_arms", band_arms_mod.main,
+                epochs + ["--bands", *EXPERIMENT_BANDS,
+                          "--out", os.path.join(out_dir, "band_arms.json")])
+            run("exp_big_table_control", big_table_mod.main,
+                epochs + ["--truncate", str(EXPERIMENT_TRUNCATE), *work("big_table_control")])
+            run("exp_200k_bisect", bisect_mod.main,
+                epochs + ["--subset", str(EXPERIMENT_SUBSET), *work("200k_bisect")])
+            run("exp_tail_poison", tail_poison_mod.main,
+                epochs + ["--prefix-frames", str(EXPERIMENT_PREFIX), *work("tail_poison")])
+            run("exp_table_integrity", integrity_mod.main,
+                ["--out", os.path.join(out_dir, "table_integrity.json")])
+    finally:
+        arms_mod.FRESH_FRAMES = fresh_frames
+    sin_counts = sinf_launches()
+    tail, bisect, big, ti = (res[k] for k in ("exp_tail_poison", "exp_200k_bisect",
+                                              "exp_big_table_control", "exp_table_integrity"))
+    want["exp_table_integrity"] += -(-PIPELINE_FRAMES // AUDIT_BATCH)
+    want["exp_tail_poison"] += len(tail["pixel_band_stats"]) + 1  # the bands, the sheet
+    mae = lambda rep: rep["steer"]["mae"]
+    arm = lambda r: {"best_val": r["best_val"], "wall_s": r["wall_s"]}
+    line = {"phase": "experiments_resident", "ok": True, "frames": PIPELINE_FRAMES, "seed": 0,
+            "envs": SIM_ENVS,
+            "cuts": {"frames": PIPELINE_FRAMES, "epochs": EXPERIMENT_EPOCHS,
+                     "bands": list(EXPERIMENT_BANDS), "truncate": EXPERIMENT_TRUNCATE,
+                     "subset": EXPERIMENT_SUBSET, "prefix_frames": EXPERIMENT_PREFIX,
+                     "fresh_holdout_frames": [fresh_frames, EXPERIMENT_FRESH]},
+            "collections": collections, "wall_s": walls, "gather_launches": launches,
+            "expected_launches": want, "sin_hash_launches": sin_counts,
+            "exp_band_arms": {k: arm(v) for k, v in res["exp_band_arms"].items()},
+            "exp_big_table_control": {**arm(big), "fresh_steer_mae": mae(big["fresh"])},
+            "exp_200k_bisect": {k: {**arm(v), "val_steer_mae": mae(v["report"])}
+                                for k, v in bisect["arms"].items()},
+            "exp_200k_bisect_bands": len(bisect["analysis"]["bands"]),
+            "exp_tail_poison": {**arm(tail), "pixel_band_stats": tail["pixel_band_stats"],
+                                "sheet_rows": len(tail["sheet_rows"]),
+                                **{f"{k}_steer_mae": mae(v) for k, v in tail["reports"].items()}},
+            "exp_table_integrity": {k: ti[k] for k in ("total_mismatch", "threshold",
+                                                       "row_bytes", "wrap_row")}}
+    emit(line)
+    bad = [k for k, n in want.items() if launches[k] != n]
+    if bad:
+        raise AssertionError(f"gather launches {launches}, expected {want}")
+    # Two new collections (the bisect's, the holdout); four when alone (and
+    # tools_resident's two seed-0 ones).
+    frames = sorted(c["frames"] for c in collections)
+    if frames != sorted([PIPELINE_FRAMES] * (1 if cached else 3) + [EXPERIMENT_FRESH]):
+        raise AssertionError(f"collections {collections}")
+    bests = [v["best_val"] for v in res["exp_band_arms"].values()] + [big["best_val"],
+                                                                      tail["best_val"]]
+    bests += [v["best_val"] for v in bisect["arms"].values()]
+    if len(bests) != 6 or not all(math.isfinite(b) for b in bests):
+        raise AssertionError(f"arms' best val {bests}")
+    if big["fresh"]["num_samples"] != EXPERIMENT_FRESH or \
+            tail["reports"]["fresh"]["num_samples"] != EXPERIMENT_FRESH:
+        raise AssertionError("the fresh holdout was not scored on every frame")
+    if ti["frames"] != PIPELINE_FRAMES or ti["row_bytes"] != ROW_BYTES:
+        raise AssertionError(f"table integrity {ti}")
+    if any(os.environ.get(k) for k in (checksum_mod.BIG_TABLE_SWITCH,
+                                        band_arms_mod.CONTINUOUS_SWITCH)):
+        raise AssertionError("a tool left its switch set")
+    return line, {"launches": sum(launches.values())}, sin_counts
+
+
+def phase_experiments_resident_alone(dev) -> dict:
+    """experiments_resident on its own (``--phase experiments_resident``): it
+    collects the seed-0 collection too."""
+    with tempfile.TemporaryDirectory(prefix="cilrs_smoke_experiments_") as workdir:
+        return phase_experiments_resident(dev, workdir, {})[0]
 
 
 def _probe(module, name: str, timed, sync_call: int, profile_call: int, ticks: int):
@@ -2771,7 +3184,9 @@ def load_sessions_labels(session: str):
 ALONE = {"switches_render": phase_switches_render, "drive_check": phase_drive_check,
          "hash_sinf_check": phase_hash_sinf_check,
          "env_steps_full_size": phase_env_steps_full_size, "profile_step": phase_profile_step,
-         "ablate_step": phase_ablate_step, "table_audit": phase_table_audit_alone}
+         "ablate_step": phase_ablate_step, "table_audit": phase_table_audit_alone,
+         "probes_full_size": phase_probes_full_size_alone,
+         "experiments_resident": phase_experiments_resident_alone}
 
 
 def main(argv: list) -> int:
@@ -2814,6 +3229,8 @@ def main(argv: list) -> int:
             _, audit_kernel = phase_table_audit(dev, table)
             phase = "cross_eval_full_size"
             cross_eval_line = phase_cross_eval_full_size(dev, ckpt, table, labels)
+            phase = "probes_full_size"
+            _, probes_kernel = phase_probes_full_size(dev, table, labels, workdir)
         del table, labels
         torch.cuda.empty_cache()
         phase = "collect_check"
@@ -2840,8 +3257,13 @@ def main(argv: list) -> int:
             emit(pipeline_line)
             phase = "report_resident"
             resident_line, resident_kernel = phase_report_resident(dev, workdir)
+            collections = {}  # shared by tools_resident and experiments_resident
             phase = "tools_resident"
-            _, tools_kernel, tools_sinf = phase_tools_resident(dev, workdir)
+            _, tools_kernel, tools_sinf = phase_tools_resident(dev, workdir, collections)
+            phase = "experiments_resident"
+            _, experiments_kernel, experiments_sinf = phase_experiments_resident(
+                dev, workdir, collections)
+            del collections
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory(prefix="cilrs_smoke_fused_") as workdir:
             phase = "fused_full_size"
@@ -2864,18 +3286,21 @@ def main(argv: list) -> int:
                                       "train_full_size": train_kernel.pop("launches"),
                                       "table_audit": audit_kernel.pop("launches"),
                                       "cross_eval_full_size": cross_eval_line["gather_launches"],
+                                      "probes_full_size": probes_kernel.pop("launches"),
                                       "collect_full_size": collect_line["gather_launches"],
                                       "drive_full_size": drive_line["gather_launches"],
                                       "pipeline_cli": pipeline_line["gather_launches"],
                                       "env_steps_full_size": bench_line["gather_launches"],
                                       "report_resident": resident_kernel["launches"],
                                       "tools_resident": tools_kernel["launches"],
+                                      "experiments_resident": experiments_kernel["launches"],
                                       "fused_full_size": fused_kernel.pop("launches"),
                                       "fused_sharded_full_size": sharded_line["gather_launches"]}
         kernel["launches"] = sum(kernel["launches_by_path"].values())
         kernel["max_abs_err"] = max(kernel["max_abs_err"], train_kernel.pop("max_abs_err"),
                                     fused_kernel.pop("max_abs_err"), resident_kernel["max_abs_err"],
-                                    audit_kernel.pop("max_abs_err"))
+                                    audit_kernel.pop("max_abs_err"),
+                                    probes_kernel.pop("max_abs_err"))
         # The source's kernels on the main paths, every mode: each path's
         # counts by mode, and their sum.
         by_path = {"collect_full_size": collect_line["sin_hash_launches"],
@@ -2885,6 +3310,7 @@ def main(argv: list) -> int:
                    "ablate_step": ablate_line["sin_hash_launches"],
                    "report_resident": resident_line["sin_hash_launches"],
                    "tools_resident": tools_sinf,
+                   "experiments_resident": experiments_sinf,
                    "fused_full_size": fused_kernel.pop("sin_hash_launches")}
         sinf_kernel["launches_by_path"] = by_path
         sinf_kernel["launches"] = sum(sum(c.values()) for c in by_path.values())
@@ -2905,6 +3331,7 @@ def main(argv: list) -> int:
         kernel.update(train_kernel)
         kernel.update(fused_kernel)
         kernel.update(audit_kernel)
+        kernel.update(probes_kernel)
         emit({"kernels": [kernel, sinf_kernel]})
         print(card_line(), flush=True)
     except Exception as e:  # a failed phase ends the run: report it, no ok line

@@ -109,14 +109,15 @@ def _index_tensor(idx: np.ndarray, dev: torch.device) -> torch.Tensor:
 def gather_group(table: dict, idxs: np.ndarray) -> dict:
     """Rows ``idxs`` (any shape, e.g. [K, B] for K batches) of ``table`` ->
     a batch dict of flat [K*B, ...] tensors: the frames through one launch of
-    the row-gather kernel, the labels by indexing."""
+    the row-gather kernel, the labels by indexing with the rows clamped to
+    [0, n-1], as the kernel and the JAX package's gather clamp them."""
     pages = table["images"] if isinstance(table["images"], tuple) else (table["images"],)
     flat = _index_tensor(np.reshape(idxs, -1), pages[0].device)
     shape = tuple(table["image_shape"])
     d = int(np.prod(shape))
     frames = gather_rows_paged(pages, flat, int(table.get("page_rows", 0)))
     batch = {"images": frames[:, :d].reshape((-1,) + shape)}
-    sel = flat.long()
+    sel = flat.long().clamp_(0, table[LABEL_KEYS[0]].shape[0] - 1)
     batch.update({k: table[k][sel] for k in LABEL_KEYS})
     return batch
 

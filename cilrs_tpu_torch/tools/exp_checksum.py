@@ -48,16 +48,25 @@ WEIGHT_MOD = 251
 
 
 @contextlib.contextmanager
-def allow_big_table():
-    """``CILRS_TPU_ALLOW_BIG_TABLE=1`` unless already set, then the
-    environment as it was."""
-    prior = os.environ.get(BIG_TABLE_SWITCH)
-    os.environ.setdefault(BIG_TABLE_SWITCH, "1")
+def switch_on(name: str, force: bool = False):
+    """The switch ``name`` set to 1 (unless already set, or whatever it was
+    with ``force``), then the environment as it was."""
+    prior = os.environ.get(name)
+    if force or prior is None:
+        os.environ[name] = "1"
     try:
         yield
     finally:
         if prior is None:
-            os.environ.pop(BIG_TABLE_SWITCH, None)
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = prior
+
+
+def allow_big_table():
+    """``CILRS_TPU_ALLOW_BIG_TABLE=1`` unless already set, then the
+    environment as it was."""
+    return switch_on(BIG_TABLE_SWITCH)
 
 
 def row_checksums(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -491,11 +491,13 @@ def test_graft_dryrun_multichip_two_ranks(capsys):
 
 def test_tools_keep_the_jax_tools_flags():
     """Each port's flags are the JAX tool's, plus --device."""
-    for name, mod in (("label_noise_floor", label_noise_floor), ("corr_ceiling", corr_ceiling),
-                      ("exp_label_structure", exp_label_structure),
-                      ("exp_image_stats", exp_image_stats), ("exp_cross_eval", exp_cross_eval)):
+    for name in ("label_noise_floor", "corr_ceiling", "exp_label_structure", "exp_image_stats",
+                 "exp_cross_eval", "exp_band_arms", "exp_big_table_control", "exp_200k_bisect",
+                 "exp_tail_poison", "exp_table_integrity", "exp_train_gather_probe",
+                 "exp_page2_identity", "exp_eval_page_mutation", "exp_eval_sideeffect",
+                 "exp_dispatch_divergence"):
         src = open(os.path.join(REPO, "tools", f"{name}.py")).read()
-        port_src = open(mod.__file__).read()
+        port_src = open(os.path.join(REPO, "cilrs_tpu_torch", "tools", f"{name}.py")).read()
         flags = sorted(set(ln.split('"')[1] for ln in src.splitlines()
                            if "add_argument(" in ln))
         port_flags = sorted(set(ln.split('"')[1] for ln in port_src.splitlines()

@@ -176,7 +176,9 @@ def test_exp_checksum_matches_jax(checksum_collections, corrupt, monkeypatch, tm
         pages[0][123, 4_000] ^= 0x5A
         cols[300] = (pages,) + cols[300][1:]
     calls = []
-    monkeypatch.delenv("CILRS_TPU_ALLOW_BIG_TABLE", raising=False)
+    # Recorded as absent, so that teardown removes the value the JAX tool sets.
+    monkeypatch.setenv("CILRS_TPU_ALLOW_BIG_TABLE", "0")
+    monkeypatch.delenv("CILRS_TPU_ALLOW_BIG_TABLE")
     patch(monkeypatch, cols, [exp_checksum], calls)
     # The JAX tool sets CILRS_TPU_ALLOW_BIG_TABLE=1 when it is imported.
     jtool = jax_module("exp_checksum")

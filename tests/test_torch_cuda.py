@@ -574,3 +574,62 @@ def test_graft_entry_on_card_matches_its_cpu_run(cuda_device):
         got = got.float().cpu()
         assert (got - want).abs().max() <= 0.05 * want.abs().max()
         assert np.corrcoef(got.flatten().numpy(), want.flatten().numpy())[0, 1] >= 0.99
+
+
+def test_probe_checksums_on_card_match_cpu(cuda_device):
+    """The probes' uint32 checksums in int64 wrap arithmetic on the card
+    against the CPU, exactly: a 25-batch group's image and label checksums,
+    the weighted checksums, and each page's hash (through the kernel, one
+    launch for the group)."""
+    from cilrs_tpu_torch.data.resident import gather_group
+    from cilrs_tpu_torch.tools import probes
+
+    table = _frame_table(cuda_device, 300, (300, 250), seed=11)
+    cpu = _on_cpu(table)
+    idxs = np.random.RandomState(0).randint(0, 550, size=(25, 12))
+    before = tg.gather_rows_paged.launches
+    got, want = gather_group(table, idxs), gather_group(cpu, idxs)
+    assert tg.gather_rows_paged.launches == before + 1
+    for i in range(25):
+        g, w = ({k: v[i * 12:(i + 1) * 12] for k, v in b.items()} for b in (got, want))
+        assert int(probes.image_checksum(g["images"])) == int(probes.image_checksum(w["images"]))
+        assert int(probes.label_checksum(g)) == int(probes.label_checksum(w))
+    np.testing.assert_array_equal(probes.weighted_checksums(got["images"], 25),
+                                  probes.weighted_checksums(want["images"], 25))
+    for pg, pc in zip(table["images"], cpu["images"]):
+        assert probes.page_hash(pg) == probes.page_hash(pc)
+
+
+def test_row_means_on_card_match_cpu(cuda_device):
+    """exp_table_integrity's row means over a two-page table, 128 rows a
+    launch across the page boundary: the card's equal the CPU's."""
+    from cilrs_tpu_torch.tools import exp_table_integrity
+
+    table = _frame_table(cuda_device, 300, (300, 250), seed=12)
+    before = tg.gather_rows_paged.launches
+    got = exp_table_integrity.row_means(table, 550, 128)
+    assert tg.gather_rows_paged.launches == before + 5
+    np.testing.assert_array_equal(got, exp_table_integrity.row_means(_on_cpu(table), 550, 128))
+
+
+def test_page2_identity_on_card(cuda_device):
+    """exp_page2_identity at a small size on the card (a (1, 1, 1, 1) CILRS
+    at batch 8 on full-size frames), under the deterministic settings: the
+    runs A, A' (A again), B and C train the same weights bit for bit, and
+    the settings are restored afterwards."""
+    from cilrs_tpu_torch.tools import exp_page2_identity
+
+    n = 600
+    table = _frame_table(cuda_device, n, (n,), seed=13)
+    labels = {k: v.cpu().numpy() for k, v in table.items() if k in ("speed", "command",
+                                                                      "controls")}
+    cfg = tc.TrainConfig(model=tc.ModelConfig(stage_sizes=(1, 1, 1, 1)),
+                         training=tc.TrainingConfig(batch_size=8))
+    prior = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    page = table["images"][0]
+    got = exp_page2_identity.identity(page, page.clone(), table, labels, n, cfg, 1, cuda_device,
+                                      runs=("A", "A'", "B", "C"))
+    assert (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) == prior
+    assert got["groups"] == 1
+    for pair in ("AA2", "AB", "BC"):
+        assert got[f"params_equal_{pair}"] and got[f"losses_equal_{pair}"], (pair, got)

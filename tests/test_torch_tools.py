@@ -123,17 +123,26 @@ def _seen():
             "k48_segments": raster.NUM_NEAR_SEGMENTS == 48}
 
 
-ORIGINAL = {"motion_blur": raster.motion_blur, "grain_texture": raster.grain_texture,
+def _patchable():
+    return {"motion_blur": raster.motion_blur, "grain_texture": raster.grain_texture,
             "NUM_NEAR_BUILDINGS": raster.NUM_NEAR_BUILDINGS,
             "PREDICT_HORIZONS": perception.PREDICT_HORIZONS,
             "NUM_NEAR_SEGMENTS": raster.NUM_NEAR_SEGMENTS}
 
 
+ORIGINAL = _patchable()
+
+
+@pytest.fixture(autouse=True)
+def _original_as_found():
+    """ORIGINAL as each test finds it: tests/test_torch_switches.py reloads
+    raster, which makes its functions new objects, in a process that may run
+    this file later."""
+    ORIGINAL.update(_patchable())
+
+
 def _restored():
-    now = {"motion_blur": raster.motion_blur, "grain_texture": raster.grain_texture,
-           "NUM_NEAR_BUILDINGS": raster.NUM_NEAR_BUILDINGS,
-           "PREDICT_HORIZONS": perception.PREDICT_HORIZONS,
-           "NUM_NEAR_SEGMENTS": raster.NUM_NEAR_SEGMENTS}
+    now = _patchable()
     return all(now[k] is ORIGINAL[k] or now[k] == ORIGINAL[k] for k in ORIGINAL)
 
 
