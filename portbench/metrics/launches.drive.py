@@ -1,0 +1,5 @@
+"""Device activities (kernels, copies, sets) a tick in the profiled part."""
+
+
+def read(rec):
+    return rec.get("activities_per_unit")
