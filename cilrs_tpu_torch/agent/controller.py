@@ -28,6 +28,7 @@ from cilrs_tpu_torch.core.state import TensorTree, WorldState
 from cilrs_tpu_torch.maps.network import LIGHT_RED, LIGHT_YELLOW, RoadNetwork
 from cilrs_tpu_torch.maps.queries import nearest_lane_waypoint
 from cilrs_tpu_torch.ops.filters import SmoothingState, init_smoothing, smooth_controls
+from cilrs_tpu_torch.utils.profiling import span
 
 # Status codes (HUD/report strings in evaluation.hud.STATUS_NAMES).
 ST_OK, ST_RED, ST_YELLOW, ST_BRAKE, ST_OVERTAKE_L, ST_OVERTAKE_R, ST_REVERSE, \
@@ -127,6 +128,7 @@ def _select(conds, values, default):
     return out
 
 
+@span("safety")
 def safety_controller(
     net: RoadNetwork,
     world: WorldState,

@@ -57,6 +57,7 @@ from cilrs_tpu_torch.ops.image import normalize
 from cilrs_tpu_torch.ops.sinf import reverse_steer
 from cilrs_tpu_torch.render.camera import CameraSpec
 from cilrs_tpu_torch.render.raster import CAMERA, render_frame
+from cilrs_tpu_torch.utils.profiling import span
 
 DT = 0.05  # 20 Hz, reference synchronous mode fixed_delta
 
@@ -73,6 +74,11 @@ OFF_ROAD_STREAK_MAX = 10
 TELEPORT_AHEAD = (5, 10, 15, 20)  # route offsets of the teleport candidates
 
 MODES = ("collect", "drive")
+
+# A tick's spans (``utils/profiling.py``); the observation and the action
+# carry theirs as decorators.
+_TICK = span("tick")
+_POLICY = span("policy")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +133,7 @@ def _check_mode(mode: str):
         raise ValueError(f"mode {mode!r}; expected one of {MODES}")
 
 
+@span("observe")
 def env_observe(state: DriverState, net: RoadNetwork, pool: RoutePool,
                 cam: CameraSpec = CAMERA, mode: str = "collect", want_frame: bool = True) -> dict:
     """Observation phase of every env: route context, perception, camera.
@@ -173,6 +180,7 @@ def _set_ego(x: torch.Tensor, ego: torch.Tensor) -> torch.Tensor:
     return torch.cat([ego.unsqueeze(1).to(x.dtype), x[:, 1:]], dim=1)
 
 
+@span("act")
 def env_act(
     state: DriverState,
     obs: dict,
@@ -461,17 +469,19 @@ def fleet_rollout(
     ticks = []
     state = fleet
     for t in range(steps):
-        obs = env_observe(state, net, pool, cam, mode=mode,
-                          want_frame=want_frames or mode == "drive")
-        nn = None
-        if mode == "drive":
-            with torch.inference_mode():
-                nn = policy(normalize(obs["frame"]), obs["speed_norm"], obs["cmd"])
-            if not want_frames:
-                obs["frame"] = None
-        state, outs = env_act(state, obs, ped_draws[t], net, pool, wt, params, mode=mode,
-                              nn_controls=nn, loop_routes=loop_routes, hold_until_s=hold_until_s)
-        ticks.append(outs)
+        with _TICK:
+            obs = env_observe(state, net, pool, cam, mode=mode,
+                              want_frame=want_frames or mode == "drive")
+            nn = None
+            if mode == "drive":
+                with _POLICY, torch.inference_mode():
+                    nn = policy(normalize(obs["frame"]), obs["speed_norm"], obs["cmd"])
+                if not want_frames:
+                    obs["frame"] = None
+            state, outs = env_act(state, obs, ped_draws[t], net, pool, wt, params, mode=mode,
+                                  nn_controls=nn, loop_routes=loop_routes,
+                                  hold_until_s=hold_until_s)
+            ticks.append(outs)
     return state, {k: torch.stack([o[k] for o in ticks], dim=1) for k in ticks[0]} if ticks else {}
 
 

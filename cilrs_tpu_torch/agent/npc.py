@@ -22,6 +22,7 @@ import torch
 from cilrs_tpu_torch.core.geometry import heading_vec, norm, wrap_angle
 from cilrs_tpu_torch.core.state import WorldState
 from cilrs_tpu_torch.maps.network import LIGHT_RED, LIGHT_YELLOW, RoadNetwork
+from cilrs_tpu_torch.utils.profiling import span
 
 WP_REACH_DIST = 3.0
 # Gaps are center-to-center; two 4.7 m cars touch at ~4.6 m, and stopping from
@@ -50,6 +51,7 @@ def _advance_waypoints(net: RoadNetwork, pos: torch.Tensor, wp: torch.Tensor, sa
     return torch.where(reached, nxt, wp)
 
 
+@span("npc")
 def npc_controller(net: RoadNetwork, world: WorldState, light_state: torch.Tensor):
     """Controls [E, V, 3] for every vehicle slot (the ego slot 0 returns zeros;
     the driver overwrites it), plus advanced waypoint indices [E, V].

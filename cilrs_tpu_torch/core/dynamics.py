@@ -11,6 +11,7 @@ import torch
 
 from cilrs_tpu_torch.core.geometry import heading_vec, norm
 from cilrs_tpu_torch.core.state import VehicleParams, WorldState
+from cilrs_tpu_torch.utils.profiling import span
 
 
 def bicycle_step(
@@ -55,6 +56,7 @@ def speed_sign_safe(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v < 0.0, -1.0, 1.0)
 
 
+@span("physics")
 def world_physics_step(
     world: WorldState,
     controls: torch.Tensor,  # [E, V, 3] (steer, throttle, brake) for ALL vehicles

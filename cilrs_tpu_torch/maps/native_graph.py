@@ -17,6 +17,8 @@ import subprocess
 
 import numpy as np
 
+from cilrs_tpu_torch.utils.profiling import span
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(os.path.dirname(_PKG_DIR), "native", "roadgraph.cpp")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -34,7 +36,8 @@ def library() -> ctypes.CDLL:
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        subprocess.run(["g++", *_FLAGS, SRC, "-o", tmp], check=True, capture_output=True)
+        with span("kernel_build"):
+            subprocess.run(["g++", *_FLAGS, SRC, "-o", tmp], check=True, capture_output=True)
         os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
     lib = ctypes.CDLL(path)
     lib.rg_build.restype = ctypes.c_void_p

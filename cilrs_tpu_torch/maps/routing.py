@@ -31,6 +31,7 @@ import torch
 from cilrs_tpu_torch.core.geometry import const, take
 from cilrs_tpu_torch.core.state import TensorTree
 from cilrs_tpu_torch.maps.network import RoadNetwork
+from cilrs_tpu_torch.utils.profiling import span
 
 ROUTE_MAX = 1024  # waypoints (~2 km at 2 m spacing)
 CMD_FOLLOW, CMD_LEFT, CMD_RIGHT, CMD_STRAIGHT = 0, 1, 2, 3
@@ -236,6 +237,7 @@ def random_route(
     return None
 
 
+@span("route_search")
 def chained_route_pool(
     net: RoadNetwork,
     rng: np.random.RandomState,

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from cilrs_tpu_torch.maps.network import GraphSpec, RoadNetwork, build_network
+from cilrs_tpu_torch.utils.profiling import span
 
 
 def town01_graph(
@@ -53,6 +54,7 @@ def town01_graph(
     return GraphSpec(nodes=nodes, edges=edges, lanes_per_dir=lanes_per_dir)
 
 
+@span("town_build")
 def make_town01(
     blocks_x: int = 5,
     blocks_y: int = 5,

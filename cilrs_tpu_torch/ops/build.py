@@ -16,6 +16,8 @@ import os
 import shutil
 import subprocess
 
+from cilrs_tpu_torch.utils.profiling import span
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -41,24 +43,27 @@ def library_path(name: str) -> str:
 
 def build(names) -> dict[str, str]:
     """Compile every ``csrc/<name>.cu`` not built yet, one nvcc each, all
-    started together. Returns {name: ptxas report} for what was compiled."""
+    started together, in one ``kernel_build`` span. Returns {name: ptxas
+    report} for what was compiled."""
+    todo = {name: library_path(name) for name in names}
+    todo = {name: out for name, out in todo.items() if not os.path.exists(out)}
+    if not todo:
+        return {}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = library_path(name)
-        if os.path.exists(out):
-            continue
-        tmp = f"{out}.{os.getpid()}.tmp"
-        procs[name] = (subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
-    reports = {}
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-        reports[name] = log
+    with span("kernel_build"):
+        procs = {}
+        for name, out in todo.items():
+            tmp = f"{out}.{os.getpid()}.tmp"
+            procs[name] = (subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
+        reports = {}
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+            reports[name] = log
     return reports
 
 

@@ -47,6 +47,7 @@ from cilrs_tpu_torch.maps.network import RoadNetwork
 from cilrs_tpu_torch.ops.sinf import grain_hash, grain_texture
 from cilrs_tpu_torch.render import weather as wx
 from cilrs_tpu_torch.render.camera import CameraSpec, camera_position, pixel_coords, ray_directions
+from cilrs_tpu_torch.utils.profiling import span
 
 CAMERA = CameraSpec()
 
@@ -326,6 +327,7 @@ def motion_blur(img: torch.Tensor, speed_kmh: torch.Tensor) -> torch.Tensor:
     return w[:, 0] * samples[0] + w[:, 1] * samples[1] + w[:, 2] * samples[2]
 
 
+@span("render")
 def render_frame(
     net: RoadNetwork,
     world: WorldState,

@@ -26,6 +26,7 @@ from torch import nn
 from cilrs_tpu_torch.cli.common import configure_numerics, require_cuda
 from cilrs_tpu_torch.config import OptimizerConfig, TrainConfig
 from cilrs_tpu_torch.models.cilrs import CILRS
+from cilrs_tpu_torch.utils.profiling import span
 
 
 def step_lr(cfg: OptimizerConfig, steps_per_epoch: int):
@@ -112,6 +113,7 @@ def flax_init_(model: nn.Module, gen: torch.Generator) -> None:
                 m.bias.zero_()
 
 
+@span("model_init")
 def create_train_state(cfg: TrainConfig, seed: int, steps_per_epoch: int = 1000,
                        schedule: str = "step", total_steps: int | None = None,
                        device="cuda") -> TrainState:

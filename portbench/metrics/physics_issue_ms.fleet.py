@@ -1,0 +1,10 @@
+"""Median host ms a tick of the program's ``physics`` span
+(``core/dynamics.py:world_physics_step``). Read from ``span_summary()`` after
+the run: the window's and the check's ticks, the last 1,024 of them, none of
+the profiled ones (``portbench/spans.py``)."""
+
+from portbench.spans import stat
+
+
+def read(rec):
+    return stat(rec, "physics", "median_ms")
