@@ -8,7 +8,7 @@ its plain PyTorch version on the card, and drives the offline-evaluation path
 end to end at the full width of the repo's model (CILRS, ResNet-34 trunk,
 88x200x3 u8 frames, speed skip on, random weights from a seed):
 
-  1. build + kernel check: both kernels built at once (one nvcc each); the
+  1. build + kernel check: the three sources built at once (one nvcc each); the
      row-gather kernel (a persistent grid of TMA bulk copies through a
      shared-memory ring) against its plain version, bit-exact, on u8 and f32
      tables, one and two pages, repeated and out-of-range indices, and a
@@ -116,8 +116,13 @@ end to end at the full width of the repo's model (CILRS, ResNet-34 trunk,
      range per layer (busy share, device activities a tick), a chunk under
      CUDA's sync check, and each sin hash on the path's own 128-env inputs
      against its plain version, bit for bit, timed there;
- 11b. profile_step: ``tools.profile_step`` at 128 envs, its nine phases
-     (wall and device ms a call), their sin-hash launches counted;
+ 11a'. render_kernels: the render kernels (``csrc/render.cu``) at the
+     bench's 128 envs and at 32 (its first 32), from 11a's state: the frames
+     against the torch composition bit for bit, each kernel's device ms
+     (queued behind a sleep) beside its bound (operations at the fp32 rate,
+     bytes at the HBM rate), the composition's ms, and each render's
+     launches; the render kernels' launches a tick (one each) are counted in
+     8, 11 and 11a;
  11c. ablate_step: ``tools.ablate_step`` at bench shape, 1 warm-up and 2
      timed chunks an arm, every patch restored, the launches counted;
  12. benchmark_cli: ``python -m cilrs_tpu_torch.cli.benchmark --duration
@@ -185,7 +190,12 @@ end to end at the full width of the repo's model (CILRS, ResNet-34 trunk,
  20. switches_check: the renderer's three switches (a night and a clear
      frame, card against CPU) and drive_check with the drive switches, each
      in a process of its own (``--phase``), then the gather kernel on one
-     page past 2^33 bytes (CILRS_TPU_ALLOW_BIG_TABLE's layout).
+     page past 2^33 bytes (CILRS_TPU_ALLOW_BIG_TABLE's layout);
+ 21. profile_step: ``tools.profile_step`` at 128 envs, its nine phases
+     (wall and device ms a call), their sin-hash and render kernel launches
+     counted, and the render kernels' events in each rendering phase's
+     profiled call; last, and a failed check fails the run after the
+     kernels line.
 
 Prints one JSON line per phase, then the kernels line, the card's name and
 power limit, and last {"ok": true, "device": {...}}. A failed phase ends the
@@ -220,6 +230,7 @@ from cilrs_tpu_torch.agent.driver import fleet_rollout, model_policy
 from cilrs_tpu_torch.agent.npc import draw_pedestrians
 from cilrs_tpu_torch.bench import env_steps as env_steps_mod
 from cilrs_tpu_torch.bench import hash_sets
+from cilrs_tpu_torch.bench import timing as timing_mod
 from cilrs_tpu_torch.bench.timing import (HBM_BYTES_PER_S, card_line, copy_bound_ms,
                                           host_us_per_call, median_ms, queued_ms)
 from cilrs_tpu_torch.cli import benchmark as benchmark_cli
@@ -231,7 +242,7 @@ from cilrs_tpu_torch.cli import report as report_cli
 from cilrs_tpu_torch.cli import train as train_cli
 from cilrs_tpu_torch.cli.common import build_map
 from cilrs_tpu_torch.config import SPEED_NORM_FACTOR, WEATHER_NAMES, load_train_config
-from cilrs_tpu_torch.core.state import make_world
+from cilrs_tpu_torch.core.state import make_world, tree_map
 from cilrs_tpu_torch.data import prepare as prepare_mod
 from cilrs_tpu_torch.data.collect import HOST_KEYS, MIN_SPEED_KMH, make_collect_fleet
 from cilrs_tpu_torch.data.dataset import (WeightedBatchSampler, load_sessions,
@@ -248,11 +259,13 @@ from cilrs_tpu_torch.ops.build import build
 from cilrs_tpu_torch.ops.gather import (bulk_plan, gather_rows_paged, gather_rows_plain,
                                         paged_layout)
 from cilrs_tpu_torch.ops.image import apply_augment, draw_augment, normalize
+from cilrs_tpu_torch.ops import render as render_kernels_mod
 from cilrs_tpu_torch.ops import sinf as sinf_mod
 from cilrs_tpu_torch.ops.sinf import (SIN_HASHES, TOP12_120, TOP12_INF, TOP12_PIO4, TOP12_TINY,
                                       hash_argument, hash_sinf, hash_sinf_plain)
 from cilrs_tpu_torch.parallel.fleet import make_sharded_rollout
 from cilrs_tpu_torch.parallel.mesh import make_mesh, shard_batch
+from cilrs_tpu_torch.render import camera as camera_mod
 from cilrs_tpu_torch.render import raster as raster_mod
 from cilrs_tpu_torch.render import weather as weather_mod
 from cilrs_tpu_torch.train import checkpoint as ckpt_mod
@@ -351,10 +364,11 @@ CHECK_EXACT = ("command", "status", "tp_cause", "tl_state", "route_idx", "comple
 FRAME_MAX_SHARE, FRAME_MAX_MEAN = 0.005, 0.05
 COLLECT_CLI_FRAMES = 3000
 # The tick's layers, as their callers call them (env_observe holds the
-# render, the render its [pixels x 72] ground pass and its box solve,
-# env_act the NPC controller and the physics).
-SIM_LAYERS = (("driver", "env_observe"), ("driver", "render_frame"), ("raster", "_ground_masks"),
-              ("raster", "_ray_obb"), ("driver", "env_act"), ("driver", "npc_controller"),
+# render, the render its scene records and its pixels' shading, the kernels
+# that do what the torch composition's [pixels x 72] ground pass and box
+# solve did; env_act the NPC controller and the physics).
+SIM_LAYERS = (("driver", "env_observe"), ("driver", "render_frame"), ("kernels", "render_prep"),
+              ("kernels", "render_shade"), ("driver", "env_act"), ("driver", "npc_controller"),
               ("driver", "world_physics_step"))
 # The drive tick's layers; "run" is the drive run, whose policy is the
 # CILRS forward.
@@ -452,6 +466,32 @@ SINF_RANDOM, SINF_ENVS = 1 << 22, 32
 # Launches of each sin-hash kernel a simulator tick: the renderer's two rain
 # hashes and its grain, the recovery machine's reverse steer.
 SINF_LAUNCHES_PER_TICK = {"hash_sinf": 0, "hash01": 2, "grain_texture": 1, "reverse_steer": 1}
+# The CUDA sources of the port (csrc/), built in phase 1.
+KERNEL_SOURCES = ("gather_rows", "hash_sinf", "render")
+# Launches of each render kernel a simulator tick (one render).
+RENDER_LAUNCHES_PER_TICK = {"render_prep": 1, "render_points": 1, "render_shade": 1,
+                            "render_blur": 1}
+# render_kernels: the render at the bench's envs and its first 32. The
+# bound's operation rate: single float32 operations (67 TFLOP/s counts a
+# fused multiply-add as two); a conversion to bf16 counts as one. The
+# operations a kernel does per item, counted from csrc/render.cu: a point
+# of a nearest-set selection (its squared distance and key, each radix pass
+# and the gather), a pixel's ray and ground point (points), a pixel's
+# fixed work in shade (ray, ground colour, compose, sky, fog, headlight,
+# rain), a ground pixel's segment, a pixel's live box, cylinder (walker or
+# pole) and sphere, and a blurred pixel.
+RENDER_PHASE_ENVS = (128, 32)
+# profile_step's phases that render, and the render kernels each one's
+# profiled call must show.
+_RENDER_KERNEL_NAMES = ("render_prep_kernel", "render_points_kernel", "render_shade_kernel",
+                        "render_blur_kernel")
+PROFILED_RENDER_KERNELS = {"render_frame (full)": _RENDER_KERNEL_NAMES,
+                           "motion blur only": ("render_blur_kernel",),
+                           f"fused chunk ({profile_step_mod.CHUNK_TICKS} ticks)":
+                               _RENDER_KERNEL_NAMES}
+FP32_OPS_PER_S = 33.5e12
+RENDER_OPS = {"select_point": 40, "point": 55, "pixel": 150, "segment": 41, "box": 47,
+              "cylinder": 23, "sphere": 16, "blur_pixel": 85}
 # The headline run (bench.env_steps, bench.py's drive fleet): BENCH_ENVS,
 # BENCH_TICKS and BENCH_REPS at bench.py's defaults, one warm-up chunk; a
 # profile of 10 of its ticks (the analysis costs about a second a tick).
@@ -540,7 +580,7 @@ def _gather_times(pages, idx: torch.Tensor, page_rows: int) -> dict:
 
 def phase_build_and_check(dev) -> dict:
     t0 = time.time()
-    ptxas = build(["gather_rows", "hash_sinf"])  # one nvcc each, started together
+    ptxas = build(KERNEL_SOURCES)  # one nvcc each, started together
     build_s = time.time() - t0
     g = torch.Generator(device=dev).manual_seed(1)
 
@@ -710,6 +750,32 @@ def check_sinf_launches(counts: dict, ticks: int, path: str):
     if counts != want:
         raise AssertionError(f"sin-hash launches in {ticks} {path} ticks: {counts}, "
                              f"expected {want}")
+
+
+def render_launches() -> dict:
+    """Launches of each render kernel since the counts were last reset."""
+    return {fn.__name__: fn.launches for fn in render_kernels_mod.RENDER_KERNELS}
+
+
+def reset_render_launches():
+    for fn in render_kernels_mod.RENDER_KERNELS:
+        fn.launches = 0
+
+
+def check_render_launches(counts: dict, ticks: int, path: str):
+    want = {name: per * ticks for name, per in RENDER_LAUNCHES_PER_TICK.items()}
+    if counts != want:
+        raise AssertionError(f"render kernel launches in {ticks} {path} ticks: {counts}, "
+                             f"expected {want}")
+
+
+def check_renders_took_the_kernels(counts: dict, sinf_counts: dict, path: str):
+    """Every render of a path that patches nothing went through the kernels:
+    each render kernel launched once for each grain launch (one a render)."""
+    want = {name: sinf_counts["grain_texture"] for name in RENDER_LAUNCHES_PER_TICK}
+    if counts != want:
+        raise AssertionError(f"render kernel launches on {path}: {counts}, expected {want} "
+                             f"(one each a grain launch)")
 
 
 def _grain_points(q: np.ndarray) -> np.ndarray:
@@ -1547,7 +1613,7 @@ def profile_sim_layers(fn, ticks: int, layers=SIM_LAYERS, run=None) -> dict:
     one run and restored. Every layer runs once a tick; one that is not
     reached through the patched name (a renamed function, a ``from x import
     f``) fails the phase instead of dropping out of the table."""
-    modules = {"driver": driver_mod, "raster": raster_mod, "run": run}
+    modules = {"driver": driver_mod, "kernels": render_kernels_mod, "run": run}
     saved = {(m, name): getattr(modules[m], name) for m, name in layers}
 
     def annotated(name, f):
@@ -1564,10 +1630,17 @@ def profile_sim_layers(fn, ticks: int, layers=SIM_LAYERS, run=None) -> dict:
         for (m, name), f in saved.items():
             setattr(modules[m], name, f)
     seen = profile.get("layers_under_profiler")
-    if seen is not None:
-        calls = {name: seen.get(name, {}).get("calls", 0) for _, name in layers}
-        if any(n != ticks for n in calls.values()):
-            raise AssertionError(f"layer ranges over {ticks} ticks: {calls}")
+    if seen is None:
+        raise AssertionError(f"the profiler saw no device time in {ticks} ticks")
+    calls = {name: seen.get(name, {}).get("calls", 0) for _, name in layers}
+    if any(n != ticks for n in calls.values()):
+        raise AssertionError(f"layer ranges over {ticks} ticks: {calls}")
+    # The render kernels' launches are linked to their ranges (a library on
+    # a runtime of its own would leave its kernels in no range).
+    unlinked = [name for m, name in layers
+                if m == "kernels" and not seen[name]["device_ms_per_tick"] > 0]
+    if unlinked:
+        raise AssertionError(f"the profiler linked no device time to {unlinked}")
     return profile
 
 
@@ -1670,6 +1743,7 @@ def phase_collect_full_size(dev) -> dict:
     base_mem = torch.cuda.memory_allocated(dev)
     walls, issues, copies, kept = [], [], [], 0
     reset_sinf_launches()
+    reset_render_launches()
     for _ in range(SIM_TIMED_CHUNKS):
         t0 = time.perf_counter()
         outs = fleet.chunk()
@@ -1683,7 +1757,7 @@ def phase_collect_full_size(dev) -> dict:
         frames = host["frame"]
         if frames.shape != (E, T, 88, 200, 3) or not np.isfinite(host["control"]).all():
             raise AssertionError(f"chunk outputs: frames {frames.shape}")
-    sinf_counts = sinf_launches()
+    sinf_counts, render_counts = sinf_launches(), render_launches()
     peak = torch.cuda.max_memory_allocated(dev)
     wall = sum(walls)
     t0 = time.time()
@@ -1725,11 +1799,12 @@ def phase_collect_full_size(dev) -> dict:
             "host_syncs_in_chunk": 0,
             "gather_launches": k1, "sin_hash_launches": sinf_counts,
             "sin_hash_launches_per_tick": sum(sinf_counts.values()) / (SIM_TIMED_CHUNKS * T),
-            "mean_luminance_by_weather": strip}
+            "render_kernel_launches": render_counts, "mean_luminance_by_weather": strip}
     emit(line)
     if k1 != 0:
         raise AssertionError(f"the collect path launched the gather kernel {k1} times")
     check_sinf_launches(sinf_counts, SIM_TIMED_CHUNKS * T, "collect")
+    check_render_launches(render_counts, SIM_TIMED_CHUNKS * T, "collect")
     if not strip["night"] < strip["clear"] - NIGHT_DARKER_BY:
         raise AssertionError(f"night {strip['night']} not darker than clear {strip['clear']}")
     return line
@@ -1853,6 +1928,7 @@ def phase_drive_full_size(dev) -> dict:
     base_mem = torch.cuda.memory_allocated(dev)
     walls, issues = [], []
     reset_sinf_launches()
+    reset_render_launches()
     for _ in range(DRIVE_TIMED_CHUNKS):
         t0 = time.perf_counter()
         outs = run.chunk()
@@ -1861,7 +1937,7 @@ def phase_drive_full_size(dev) -> dict:
         walls.append(time.perf_counter() - t0)
         if not torch.isfinite(outs["control"]).all():
             raise AssertionError("non-finite controls")
-    sinf_counts = sinf_launches()
+    sinf_counts, render_counts = sinf_launches(), render_launches()
     peak = torch.cuda.max_memory_allocated(dev)
     wall = sum(walls)
     ticks = DRIVE_TIMED_CHUNKS * T
@@ -1890,13 +1966,14 @@ def phase_drive_full_size(dev) -> dict:
             "profile_one_chunk": profile, "aten_calls_one_tick": aten_calls,
             "host_syncs_in_chunk": 0, "gather_launches": k1, "sin_hash_launches": sinf_counts,
             "sin_hash_launches_per_tick": sum(sinf_counts.values()) / ticks,
-            "scoring_ms": scoring_ms,
+            "render_kernel_launches": render_counts, "scoring_ms": scoring_ms,
             "scores_after_run": {k: scores[k] for k in ("overall", "total_distance_m",
                                                         "collisions", "teleports")}}
     emit(line)
     if k1 != 0:
         raise AssertionError(f"the drive path launched the gather kernel {k1} times")
     check_sinf_launches(sinf_counts, ticks, "drive")
+    check_render_launches(render_counts, ticks, "drive")
     return line
 
 
@@ -2009,9 +2086,11 @@ def phase_env_steps_full_size(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     base_mem = torch.cuda.memory_allocated(dev)
     reset_sinf_launches()
+    reset_render_launches()
     gather_rows_paged.launches = 0
     line, times, fleet = env_steps_mod.run(E, T, REPS, dev)
     sinf_counts, k1 = sinf_launches(), gather_rows_paged.launches
+    render_counts = render_launches()
     peak = torch.cuda.max_memory_allocated(dev)
     if not all(torch.isfinite(x).all() for x in (fleet.state.world.veh_pos,
                                                  fleet.state.world.veh_speed)):
@@ -2042,34 +2121,190 @@ def phase_env_steps_full_size(dev) -> dict:
             "profile_ticks": profile, "host_syncs_in_chunk": 0, "gather_launches": k1,
             "sin_hash_launches": sinf_counts,
             "sin_hash_launches_per_tick": sum(sinf_counts.values()) / ticks,
+            "render_kernel_launches": render_counts,
             "hash_kernels_at_128_envs": {"bit_exact_shapes": checked, "times": hashes}}
     emit(line)
     if k1 != 0:
         raise AssertionError(f"the bench path launched the gather kernel {k1} times")
     check_sinf_launches(sinf_counts, ticks, "bench drive")
+    check_render_launches(render_counts, ticks, "bench drive")
+    return line, fleet
+
+
+def _render_work(net, world, spec) -> dict:
+    """Each render kernel's operations (``RENDER_OPS`` per item, the items
+    these inputs give: ground pixels, live boxes, walkers and lights) and the
+    bytes it must read and write, at the inputs of one render."""
+    E, N = world.num_envs, spec.height * spec.width
+    px = E * N
+    dz = camera_mod.ray_directions(spec, world.ego_yaw)[..., 2].reshape(E, N)
+    t_ground = torch.where(dz < -1e-4, spec.offset_up / torch.clamp(-dz, min=1e-6), raster_mod.INF)
+    ground = int((t_ground < spec.far).sum())
+    num_bldg, L, W = net.bldg_xy.shape[0], net.num_lights, net.num_waypoints
+    near_bldg = min(raster_mod.NUM_NEAR_BUILDINGS, num_bldg)
+    near_lights = min(raster_mod.NUM_NEAR_LIGHTS, L)
+    segments = min(raster_mod.NUM_NEAR_SEGMENTS, W)
+    live_boxes = int(world.veh_alive[:, 1:].sum()) + E * near_bldg
+    walkers = int(world.ped_alive.sum())
+    record = render_kernels_mod.record_floats(segments, world.num_vehicles - 1 + near_bldg,
+                                              world.num_pedestrians, near_lights)
+    ops = {"render_prep": E * (W + num_bldg + L) * RENDER_OPS["select_point"],
+           "render_points": px * RENDER_OPS["point"],
+           "render_shade": px * RENDER_OPS["pixel"] + ground * segments * RENDER_OPS["segment"]
+           + N * (live_boxes * RENDER_OPS["box"] + walkers * RENDER_OPS["cylinder"])
+           + px * near_lights * (RENDER_OPS["cylinder"] + RENDER_OPS["sphere"]),
+           "render_blur": px * RENDER_OPS["blur_pixel"]}
+    world_bytes = sum(getattr(world, f).numel() * getattr(world, f).element_size() for f in (
+        "veh_pos", "veh_yaw", "veh_speed", "veh_alive", "veh_control", "veh_reverse", "ped_pos",
+        "ped_alive", "time_s", "weather_idx"))
+    net_bytes = sum(t.numel() * t.element_size() for t in (
+        net.wp_xy, net.wp_next, net.wp_is_junction, net.bldg_xy, net.bldg_yaw, net.bldg_half,
+        net.bldg_h, net.light_xy, net.light_yaw))
+    nbytes = {"render_prep": world_bytes + net_bytes + E * L * 8 + E * record * 4 + E * 4,
+              # rays from the records; sxy (8 B) and the rain columns (4 B) out
+              "render_points": E * record * 4 + px * 12 + N * 4,
+              # the grain and the rain hash (4 B each), the frame (12 B) out
+              "render_shade": E * record * 4 + px * 20 + N * 4,
+              "render_blur": px * 24 + E * 4}
+    out = {}
+    for name in ops:
+        ops_ms, bytes_ms = ops[name] / FP32_OPS_PER_S * 1e3, nbytes[name] / HBM_BYTES_PER_S * 1e3
+        out[name] = {"operations": ops[name], "bytes": nbytes[name],
+                     "bound_ms": max(ops_ms, bytes_ms),
+                     "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    out["items"] = {"pixels": px, "ground_pixels": ground, "segments": segments,
+                    "live_boxes": live_boxes, "walkers": walkers, "lights": near_lights}
+    return out
+
+
+def phase_render_kernels(dev, fleet) -> dict:
+    """The render kernels at the bench fleet's state (``fleet`` after its
+    chunks), at its envs and at its first 32: the frame against the torch
+    composition (``render_frame_plain`` with ``motion_blur_plain``) bit for
+    bit, one launch of each kernel a render, and each kernel's device ms
+    (queued behind a sleep; its inputs captured from one render) beside its
+    bound and the composition's ms."""
+    net, spec = fleet.net, raster_mod.CAMERA
+    results = {}
+    reset_render_launches()
+    for E in RENDER_PHASE_ENVS:
+        world = tree_map(lambda x: x[:E], fleet.state.world)
+        ls = light_states(net, world.time_s)
+        calls = {}
+        saved = {fn.__name__: fn for fn in render_kernels_mod.RENDER_KERNELS}
+
+        def capture(name, fn):
+            def call(*args):
+                calls[name] = args
+                return fn(*args)
+            return call
+
+        before = {**render_launches(), **sinf_launches()}
+        try:
+            for name, fn in saved.items():
+                setattr(render_kernels_mod, name, capture(name, fn))
+            got = raster_mod.render_frame(net, world, ls)
+        finally:
+            for name, fn in saved.items():
+                setattr(render_kernels_mod, name, fn)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in {**render_launches(), **sinf_launches()}.items()}
+        # A render is a tick's launches but the recovery's reverse steer.
+        if launched != {**RENDER_LAUNCHES_PER_TICK, **SINF_LAUNCHES_PER_TICK, "reverse_steer": 0}:
+            raise AssertionError(f"launches of one render at {E} envs: {launched}")
+        blur = raster_mod.motion_blur
+        raster_mod.motion_blur = raster_mod.motion_blur_plain
+        try:
+            want = raster_mod.render_frame_plain(net, world, ls)
+            plain_ms = median_ms(lambda: raster_mod.render_frame_plain(net, world, ls), reps=5,
+                                 rounds=5)
+        finally:
+            raster_mod.motion_blur = blur
+        if not torch.equal(got, want):
+            raise AssertionError(f"render kernels differ from the composition at {E} envs on "
+                                 f"{float((got != want).float().mean())} of the values")
+        work = _render_work(net, world, spec)
+        kernels = {}
+        for name, fn in saved.items():
+            args = calls[name]
+            kernels[name] = {"kernel_ms": queued_ms(lambda: fn(*args)), **work[name]}
+        img, speed_kmh = calls["render_blur"][:2]
+        kernels["render_blur"]["plain_ms"] = median_ms(
+            lambda: raster_mod.motion_blur_plain(img, speed_kmh))
+        sxy = saved["render_points"](*calls["render_points"])[0]
+        results[E] = {
+            "kernels": kernels, "items": work["items"],
+            "grain_texture_ms": queued_ms(lambda: sinf_mod.grain_texture(sxy)),
+            "render_ms": median_ms(lambda: raster_mod.render_frame(net, world, ls)),
+            "render_host_us": host_us_per_call(lambda: raster_mod.render_frame(net, world, ls),
+                                               calls=200, batch=20),
+            "composition_ms": plain_ms, "launches_per_render": launched}
+    line = {"phase": "render_kernels", "ok": True, "map": "town01 3x3 blocks",
+            "camera": [spec.height, spec.width], "bit_exact": True, "by_envs": results,
+            "render_kernel_launches": render_launches()}
+    emit(line)
     return line
 
 
-def phase_profile_step(dev) -> dict:
+def phase_render_kernels_alone(dev) -> dict:
+    """render_kernels on its own (``--phase render_kernels``): the bench
+    fleet after one chunk."""
+    fleet = env_steps_mod.make_bench_fleet(BENCH_ENVS, BENCH_TICKS, dev)
+    fleet.chunk()
+    return phase_render_kernels(dev, fleet)
+
+
+def phase_profile_step(dev) -> tuple[dict, list]:
     """tools/profile_step at E = 128: the nine timings, wall and device ms;
-    the sin-hash launches of its render and chunk phases."""
+    the sin-hash and render kernel launches of its render, blur and chunk
+    phases, and each of those phases' profiled call holding the render
+    kernels' device events. Returns its line and its failed checks, which
+    fail the run after the kernels line."""
     reset_sinf_launches()
+    reset_render_launches()
+    kernels_seen = []  # the render kernels of each profiled call, in the phases' order
+    profiled = timing_mod.profiled_device_time
+
+    def recorded(fn):
+        ms, n, names = profiled(fn, names=True)
+        kernels_seen.append(sorted(k for k in names if k.startswith("render_")))
+        return ms, n
+
     t0 = time.time()
-    out = profile_step_mod.profile(BENCH_ENVS, dev)
-    counts = sinf_launches()
+    timing_mod.profiled_device_time = recorded
+    try:
+        out = profile_step_mod.profile(BENCH_ENVS, dev)
+    finally:
+        timing_mod.profiled_device_time = profiled
+    counts, render_counts = sinf_launches(), render_launches()
     # Each phase: a warm-up, its timed calls and one profiled call.
-    renders = 1 + profile_step_mod.REPS + 1
+    renders = blurs = 1 + profile_step_mod.REPS + 1
     chunk_ticks = (1 + profile_step_mod.CHUNK_REPS + 1) * profile_step_mod.CHUNK_TICKS
     want = {"hash_sinf": 0, "hash01": 2 * (renders + chunk_ticks),
             "grain_texture": renders + chunk_ticks, "reverse_steer": chunk_ticks}
+    want_render = {"render_prep": renders + chunk_ticks, "render_points": renders + chunk_ticks,
+                   "render_shade": renders + chunk_ticks,
+                   "render_blur": renders + blurs + chunk_ticks}
+    seen = dict(zip(out, kernels_seen))
     line = {"phase": "profile_step", "ok": True, "envs": BENCH_ENVS, "wall_s": time.time() - t0,
-            "timings": out, "sin_hash_launches": counts}
+            "timings": out, "sin_hash_launches": counts, "render_kernel_launches": render_counts,
+            "render_kernels_profiled": seen}
     emit(line)
+    faults = []
     if counts != want:
-        raise AssertionError(f"profile_step's sin-hash launches {counts}, expected {want}")
-    if any(r["device_ms"] is None or not r["device_ms"] > 0 for r in out.values()):
-        raise AssertionError("a phase without device time")
-    return line
+        faults.append(f"profile_step's sin-hash launches {counts}, expected {want}")
+    if render_counts != want_render:
+        faults.append(f"profile_step's render kernel launches {render_counts}, expected "
+                      f"{want_render}")
+    without = [name for name, r in out.items() if r["device_ms"] is None or not r["device_ms"] > 0]
+    if without:
+        faults.append(f"profile_step's phases without device time: {without}")
+    # A profiled window that rendered shows the render kernels' events.
+    for name, want_kernels in PROFILED_RENDER_KERNELS.items():
+        if not set(want_kernels) <= set(seen[name] or ()):
+            faults.append(f"profile_step's profiled {name!r} shows render kernels {seen[name]}, "
+                          f"expected {want_kernels}")
+    return line, faults
 
 
 def phase_ablate_step(dev) -> dict:
@@ -2077,22 +2312,30 @@ def phase_ablate_step(dev) -> dict:
     chunks an arm; every patch restored after."""
     saved = {patch[:2]: getattr(*patch[:2]) for _, _, patch in ablate_mod.ARMS if patch}
     reset_sinf_launches()
+    reset_render_launches()
     t0 = time.time()
     out = ablate_mod.ablate(BENCH_ENVS, BENCH_TICKS, ABLATE_REPS, dev)
-    counts = sinf_launches()
+    counts, render_counts = sinf_launches(), render_launches()
     restored = all(getattr(m, name) is v for (m, name), v in saved.items())
     ticks = len(ablate_mod.ARMS) * (1 + ABLATE_REPS) * BENCH_TICKS
     arm_ticks = (1 + ABLATE_REPS) * BENCH_TICKS
     want = {"hash_sinf": 0, "hash01": 2 * ticks, "grain_texture": ticks - arm_ticks,
             "reverse_steer": ticks}  # the grain arm's renders take no grain
+    # The no-blur arm's renders launch no blur.
+    want_render = {**{name: ticks for name in RENDER_LAUNCHES_PER_TICK},
+                   "render_blur": ticks - arm_ticks}
     line = {"phase": "ablate_step", "ok": True, "envs": BENCH_ENVS, "ticks": BENCH_TICKS,
             "timed_chunks": ABLATE_REPS, "wall_s": time.time() - t0, "arms": out,
-            "sin_hash_launches": counts, "patches_restored": restored}
+            "sin_hash_launches": counts, "render_kernel_launches": render_counts,
+            "patches_restored": restored}
     emit(line)
     if not restored:
         raise AssertionError("ablate_step left a patch in place")
     if counts != want:
         raise AssertionError(f"ablate_step's sin-hash launches {counts}, expected {want}")
+    if render_counts != want_render:
+        raise AssertionError(f"ablate_step's render kernel launches {render_counts}, "
+                             f"expected {want_render}")
     return line
 
 
@@ -2121,6 +2364,7 @@ def phase_report_resident(dev, workdir: str) -> tuple[dict, dict]:
 
     gather_rows_paged.launches = 0
     reset_sinf_launches()
+    reset_render_launches()
     report_resident_mod.collect_predictions_resident = recorded
     t0 = time.time()
     try:
@@ -2132,6 +2376,7 @@ def phase_report_resident(dev, workdir: str) -> tuple[dict, dict]:
         report_resident_mod.collect_predictions_resident = predict
     wall = time.time() - t0
     launches, sinf_counts = gather_rows_paged.launches, sinf_launches()
+    render_counts = render_launches()
     table, labels, rows = seen[0]
     # The re-collection against the pipeline's: its session CSV (labels
     # printed to 6 decimals, speeds and positions to 3).
@@ -2151,7 +2396,7 @@ def phase_report_resident(dev, workdir: str) -> tuple[dict, dict]:
     line = {"phase": "report_resident", "ok": True, "frames": PIPELINE_FRAMES, "envs": SIM_ENVS,
             "wall_s": wall, "val_rows": len(rows), "gather_launches": launches,
             "expected_launches": want_launches, "gather_max_abs_err": err,
-            "sin_hash_launches": sinf_counts,
+            "sin_hash_launches": sinf_counts, "render_kernel_launches": render_counts,
             "labels_vs_pipeline_csv": {"max_abs_err": label_errs,
                                        "command_mismatches": cmd_mismatch},
             "report_vs_pipeline": {"leaves_differing": len(diffs), "max_abs_diff": max_diff,
@@ -2160,6 +2405,7 @@ def phase_report_resident(dev, workdir: str) -> tuple[dict, dict]:
     emit(line)
     if launches != want_launches:
         raise AssertionError(f"{launches} gather launches, expected {want_launches}")
+    check_renders_took_the_kernels(render_counts, sinf_counts, "report_resident")
     if len(labels["speed"]) != PIPELINE_FRAMES or cmd_mismatch or \
             not all(e <= 1.01e-6 for e in label_errs.values()):
         raise AssertionError(f"re-collected labels differ from the pipeline's: {label_errs}, "
@@ -2231,6 +2477,7 @@ def phase_tools_resident(dev, workdir: str, cache: dict) -> tuple[dict, dict, di
 
     out = lambda name: ["--out", os.path.join(out_dir, f"{name}.json")]
     reset_sinf_launches()
+    reset_render_launches()
     with cached_collections([checksum_mod, paged_audit_mod, image_stats_mod, label_structure_mod,
                              cross_eval_mod, arms_mod], cache) as collections:
         run("exp_checksum", checksum_mod.main,
@@ -2250,7 +2497,7 @@ def phase_tools_resident(dev, workdir: str, cache: dict) -> tuple[dict, dict, di
         run("exp_row_region", row_region_mod.main,
             frames + ["--epochs", str(TOOL_ARM_EPOCHS), "--train-rows", str(TOOL_TRAIN_ROWS),
                       *out("row_region")])
-    sin_counts = sinf_launches()
+    sin_counts, render_counts = sinf_launches(), render_launches()
 
     # graft_entry's forward on the card (bf16 trunk, float32 heads without
     # TF32) against its CPU run in float32, on the same weights and inputs.
@@ -2281,6 +2528,7 @@ def phase_tools_resident(dev, workdir: str, cache: dict) -> tuple[dict, dict, di
                      "row_region_train_rows": TOOL_TRAIN_ROWS},
             "collections": collections, "wall_s": walls, "gather_launches": launches,
             "expected_launches": want, "sin_hash_launches": sin_counts,
+            "render_kernel_launches": render_counts,
             "exp_checksum": {k: ck[k] for k in ("write_mismatches", "read_mismatches",
                                                 "row_bytes", "wrap_row")},
             "exp_paged_audit": {"exactness_mismatches": pa["exactness_mismatches"],
@@ -2300,6 +2548,7 @@ def phase_tools_resident(dev, workdir: str, cache: dict) -> tuple[dict, dict, di
                                      "cudnn": torch.backends.cudnn.allow_tf32},
                             "tolerance": {"rel": FWD_REL_TOL, "corr": FWD_MIN_CORR}}}
     emit(line)
+    check_renders_took_the_kernels(render_counts, sin_counts, "tools_resident")
     bad = [k for k, n in want.items() if launches[k] != n]
     bad += [k for k in ("exp_seed_arms", "exp_row_region") if launches[k] < len(res[k])]
     if bad:
@@ -2395,6 +2644,7 @@ def phase_experiments_resident(dev, workdir: str, cache: dict) -> tuple[dict, di
 
     work = lambda name: ["--workdir", os.path.join(out_dir, name)]
     reset_sinf_launches()
+    reset_render_launches()
     fresh_frames = arms_mod.FRESH_FRAMES
     arms_mod.FRESH_FRAMES = EXPERIMENT_FRESH
     try:
@@ -2414,7 +2664,7 @@ def phase_experiments_resident(dev, workdir: str, cache: dict) -> tuple[dict, di
                 ["--out", os.path.join(out_dir, "table_integrity.json")])
     finally:
         arms_mod.FRESH_FRAMES = fresh_frames
-    sin_counts = sinf_launches()
+    sin_counts, render_counts = sinf_launches(), render_launches()
     tail, bisect, big, ti = (res[k] for k in ("exp_tail_poison", "exp_200k_bisect",
                                               "exp_big_table_control", "exp_table_integrity"))
     want["exp_table_integrity"] += -(-PIPELINE_FRAMES // AUDIT_BATCH)
@@ -2429,6 +2679,7 @@ def phase_experiments_resident(dev, workdir: str, cache: dict) -> tuple[dict, di
                      "fresh_holdout_frames": [fresh_frames, EXPERIMENT_FRESH]},
             "collections": collections, "wall_s": walls, "gather_launches": launches,
             "expected_launches": want, "sin_hash_launches": sin_counts,
+            "render_kernel_launches": render_counts,
             "exp_band_arms": {k: arm(v) for k, v in res["exp_band_arms"].items()},
             "exp_big_table_control": {**arm(big), "fresh_steer_mae": mae(big["fresh"])},
             "exp_200k_bisect": {k: {**arm(v), "val_steer_mae": mae(v["report"])}
@@ -2440,6 +2691,7 @@ def phase_experiments_resident(dev, workdir: str, cache: dict) -> tuple[dict, di
             "exp_table_integrity": {k: ti[k] for k in ("total_mismatch", "threshold",
                                                        "row_bytes", "wrap_row")}}
     emit(line)
+    check_renders_took_the_kernels(render_counts, sin_counts, "experiments_resident")
     bad = [k for k, n in want.items() if launches[k] != n]
     if bad:
         raise AssertionError(f"gather launches {launches}, expected {want}")
@@ -2566,11 +2818,13 @@ def phase_fused_full_size(dev, workdir: str) -> tuple[dict, dict, str]:
         torch.cuda.reset_peak_memory_stats(dev)
         gather_rows_paged.launches = 0
         reset_sinf_launches()
+        reset_render_launches()
         t0 = time.time()
         out = fused_cli.main(_fused_args(ckpt, hist_path, dev))
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches, sinf_counts = gather_rows_paged.launches, sinf_launches()
+        render_counts = render_launches()
         peak = torch.cuda.max_memory_allocated(dev)
     finally:
         fused_mod.sample_batch = orig_sample
@@ -2620,7 +2874,7 @@ def phase_fused_full_size(dev, workdir: str) -> tuple[dict, dict, str]:
             "peak_mem_bytes": peak, "ring_bytes": FUSED_BUFFER * d,
             "history_last": hist[-1] if hist else None, "gather_launches": launches,
             "expected_launches": out["train_steps"] + 1, "sin_hash_launches": sinf_counts,
-            "sampled_batch_vs_plain": sampled,
+            "render_kernel_launches": render_counts, "sampled_batch_vs_plain": sampled,
             "gather": gathers, "host_syncs": {"collect": col["syncs"], "train": trn["syncs"]},
             "checkpoint_controls_finite": bool(torch.isfinite(ctl).all() and torch.isfinite(ps).all())}
     emit(line)  # the readings first, so a failed check still shows them
@@ -2631,6 +2885,7 @@ def phase_fused_full_size(dev, workdir: str) -> tuple[dict, dict, str]:
         raise AssertionError(f"{launches} gather launches, expected {out['train_steps'] + 1}")
     if not all(sinf_counts[name] >= 1 for name, per in SINF_LAUNCHES_PER_TICK.items() if per):
         raise AssertionError(f"the fused loop's sin-hash launches: {sinf_counts}")
+    check_renders_took_the_kernels(render_counts, sinf_counts, "fused_full_size")
     if sampled.get("max_abs_err") != 0.0:
         raise AssertionError(f"a sampled batch differs from the plain gather: {sampled}")
     if col["syncs"] or trn["syncs"] or col["syncs"] is None or trn["syncs"] is None:
@@ -2643,7 +2898,8 @@ def phase_fused_full_size(dev, workdir: str) -> tuple[dict, dict, str]:
                  "collect_chunk_ms": col["wall_ms"], "train_chunk_ms": trn["wall_ms"],
                  "peak_mem_bytes": peak, "wall_s": wall}
     return line, {"launches": launches, "max_abs_err": max(g["max_abs_err"] for g in gathers.values()),
-                  "fused_gathers": gathers, "sin_hash_launches": sinf_counts}, ckpt, reference
+                  "fused_gathers": gathers, "sin_hash_launches": sinf_counts,
+                  "render_kernel_launches": render_counts}, ckpt, reference
 
 
 def phase_residuals_cli(dev, workdir: str, ckpt: str) -> dict:
@@ -3183,7 +3439,8 @@ def load_sessions_labels(session: str):
 # process of their own, with its switches set).
 ALONE = {"switches_render": phase_switches_render, "drive_check": phase_drive_check,
          "hash_sinf_check": phase_hash_sinf_check,
-         "env_steps_full_size": phase_env_steps_full_size, "profile_step": phase_profile_step,
+         "env_steps_full_size": phase_env_steps_full_size,
+         "render_kernels": phase_render_kernels_alone, "profile_step": phase_profile_step,
          "ablate_step": phase_ablate_step, "table_audit": phase_table_audit_alone,
          "probes_full_size": phase_probes_full_size_alone,
          "experiments_resident": phase_experiments_resident_alone}
@@ -3245,9 +3502,10 @@ def main(argv: list) -> int:
             phase = "drive_full_size"
             drive_line = phase_drive_full_size(dev)
             phase = "env_steps_full_size"
-            bench_line = phase_env_steps_full_size(dev)
-            phase = "profile_step"
-            profile_line = phase_profile_step(dev)
+            bench_line, bench_fleet = phase_env_steps_full_size(dev)
+            phase = "render_kernels"
+            render_line = phase_render_kernels(dev, bench_fleet)
+            del bench_fleet
             phase = "ablate_step"
             ablate_line = phase_ablate_step(dev)
             phase = "benchmark_cli"
@@ -3259,9 +3517,9 @@ def main(argv: list) -> int:
             resident_line, resident_kernel = phase_report_resident(dev, workdir)
             collections = {}  # shared by tools_resident and experiments_resident
             phase = "tools_resident"
-            _, tools_kernel, tools_sinf = phase_tools_resident(dev, workdir, collections)
+            tools_line, tools_kernel, tools_sinf = phase_tools_resident(dev, workdir, collections)
             phase = "experiments_resident"
-            _, experiments_kernel, experiments_sinf = phase_experiments_resident(
+            experiments_line, experiments_kernel, experiments_sinf = phase_experiments_resident(
                 dev, workdir, collections)
             del collections
         torch.cuda.empty_cache()
@@ -3281,6 +3539,11 @@ def main(argv: list) -> int:
             phase_parallel_two_ranks_one_card(dev, workdir)
         phase = "switches_check"
         phase_switches_check(dev)
+        # Last, and its failed checks fail the run after the kernels line:
+        # minutes into this process the profiler has read no device event
+        # in the render's one-call window (PERF.md section 7).
+        phase = "profile_step"
+        profile_line, profile_faults = phase_profile_step(dev)
         phase = "report"
         kernel["launches_by_path"] = {"eval_full_size": kernel["launches"],
                                       "train_full_size": train_kernel.pop("launches"),
@@ -3328,12 +3591,39 @@ def main(argv: list) -> int:
         sinf_kernel["at_128_envs"] = {
             name: {k: t[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by")}
             for name, t in bench_line["hash_kernels_at_128_envs"]["times"].items()}
+        # The render kernels on every path that renders: each path's counts
+        # by kernel, their sum, a tick's, and the kernels at 128 envs.
+        render_by_path = {
+            "collect_full_size": collect_line["render_kernel_launches"],
+            "drive_full_size": drive_line["render_kernel_launches"],
+            "env_steps_full_size": bench_line["render_kernel_launches"],
+            "render_kernels": render_line["render_kernel_launches"],
+            "profile_step": profile_line["render_kernel_launches"],
+            "ablate_step": ablate_line["render_kernel_launches"],
+            "report_resident": resident_line["render_kernel_launches"],
+            "tools_resident": tools_line["render_kernel_launches"],
+            "experiments_resident": experiments_line["render_kernel_launches"],
+            "fused_full_size": fused_kernel.pop("render_kernel_launches")}
+        at_128 = render_line["by_envs"][BENCH_ENVS]
+        render_kernel = {
+            "name": "render", "source": "cilrs_tpu_torch/csrc/render.cu",
+            "launches_by_path": render_by_path,
+            "launches": sum(sum(c.values()) for c in render_by_path.values()),
+            "launches_per_tick": RENDER_LAUNCHES_PER_TICK,
+            "at_128_envs": {
+                **{name: {k: t[k] for k in ("kernel_ms", "bound_ms", "bound_by")}
+                   for name, t in at_128["kernels"].items()},
+                "render_ms": at_128["render_ms"], "plain_ms": at_128["composition_ms"],
+                "blur_plain_ms": at_128["kernels"]["render_blur"]["plain_ms"]}}
         kernel.update(train_kernel)
         kernel.update(fused_kernel)
         kernel.update(audit_kernel)
         kernel.update(probes_kernel)
-        emit({"kernels": [kernel, sinf_kernel]})
+        emit({"kernels": [kernel, sinf_kernel, render_kernel]})
         print(card_line(), flush=True)
+        if profile_faults:
+            phase = "profile_step"
+            raise AssertionError("; ".join(profile_faults))
     except Exception as e:  # a failed phase ends the run: report it, no ok line
         traceback.print_exc()
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})

@@ -100,16 +100,22 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def profiled_device_time(fn) -> tuple[float, int]:
+def profiled_device_time(fn, names: bool = False) -> tuple:
     """One call of fn under torch.profiler, synchronised: the device ms of
-    the kernels and copies it ran, summed, and their count. Warm fn up
-    first (cuDNN's algorithms, built kernels, cached constants)."""
+    the kernels and copies it ran, summed, and their count, from the trace's
+    device events; with ``names``, also the set of their names (without a
+    kernel's parameters). Warm fn up first (cuDNN's algorithms, built
+    kernels, cached constants)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-               and not getattr(e, "is_user_annotation", False)]
-    return sum(e.self_device_time_total for e in kernels) / 1e3, sum(e.count for e in kernels)
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and e.time_range.end > e.time_range.start]
+    out = (sum(e.time_range.end - e.time_range.start for e in device) / 1e3, len(device))
+    if names:
+        return (*out, {e.name.split("(")[0].removeprefix("void ").strip() for e in device})
+    return out

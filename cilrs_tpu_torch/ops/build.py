@@ -1,7 +1,10 @@
 """Build the hand-written CUDA kernels of ``csrc/`` at first use and load them.
 
 Each source compiles with nvcc for Hopper (``sm_90a``) into a shared library
-with a plain C interface, loaded with ``ctypes``. Libraries land in ``_build/``
+with a plain C interface, loaded with ``ctypes``. Each links the shared CUDA
+runtime, ``libcudart.so.12``, which the loader resolves to the one PyTorch
+has loaded, so the process holds one CUDA runtime, not one more a library
+(nvcc's default is a static runtime in each). Libraries land in ``_build/``
 beside this package, named by a hash of their source, so an edited source
 rebuilds and an unchanged one loads at once. Nothing builds at import time:
 the CPU tests import every module on machines that have no nvcc.
@@ -22,7 +25,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-cudart", "shared", "-Xptxas", "-v")
 
 
 def nvcc_path() -> str:

@@ -22,6 +22,7 @@ import functools
 import torch
 
 from cilrs_tpu_torch.ops.build import load_library
+from cilrs_tpu_torch.utils.profiling import kernel_launch
 
 # The kernel's bulk copies move multiples of 16 bytes between 16-byte aligned
 # addresses, so every row must start 16-byte aligned.
@@ -168,9 +169,10 @@ def _gather_rows_cuda(pages, idx: torch.Tensor, page_rows: int) -> torch.Tensor:
     chunk_bytes, chunks_per_row, stages, grid, smem_bytes = bulk_plan(
         row_bytes, b, _num_sms(dev.index))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    status = lib.gather_rows_launch(
-        ptrs, rows, len(pages), page_rows, idx.data_ptr(), b, out.data_ptr(), row_bytes,
-        chunk_bytes, chunks_per_row, stages, grid, smem_bytes, dev.index, stream)
+    with kernel_launch("gather_rows"):
+        status = lib.gather_rows_launch(
+            ptrs, rows, len(pages), page_rows, idx.data_ptr(), b, out.data_ptr(), row_bytes,
+            chunk_bytes, chunks_per_row, stages, grid, smem_bytes, dev.index, stream)
     if status != 0:
         raise RuntimeError("gather_rows kernel launch failed: "
                            + lib.gather_rows_error_string(status).decode())

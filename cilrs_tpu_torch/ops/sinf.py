@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from cilrs_tpu_torch.ops.build import load_library
+from cilrs_tpu_torch.utils.profiling import kernel_launch
 
 # Table 0 of glibc's __sincosf_table. Table 1 (used when the quadrant has bit
 # 1 set) negates C0-C4 and keeps the rest.
@@ -265,9 +266,10 @@ def _hash_sinf_cuda(x: torch.Tensor, a: float, y) -> torch.Tensor:
     elif y is not None:
         b, mode = float(y), Y_SCALAR
     dev = x.device
-    _check_status(lib, lib.hash_sinf_launch(
-        x.data_ptr(), sx, y_ptr, sy, mode, a, b, out.data_ptr(), n, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream), "hash_sinf")
+    with kernel_launch("hash_sinf"):
+        status = lib.hash_sinf_launch(x.data_ptr(), sx, y_ptr, sy, mode, a, b, out.data_ptr(), n,
+                                      dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _check_status(lib, status, "hash_sinf")
     hash_sinf.launches += 1
     return out
 
@@ -309,9 +311,10 @@ def _mode_cuda(fn, mode: int, inp: torch.Tensor, shape, consts) -> torch.Tensor:
         return out
     k = (ctypes.c_float * 8)(*consts, *([0.0] * (8 - len(consts))))
     dev = inp.device
-    _check_status(lib, lib.hash_mode_launch(
-        mode, inp.data_ptr(), out.data_ptr(), n, k, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream), fn.__name__)
+    with kernel_launch(fn.__name__):
+        status = lib.hash_mode_launch(mode, inp.data_ptr(), out.data_ptr(), n, k, dev.index,
+                                      torch.cuda.current_stream(dev).cuda_stream)
+    _check_status(lib, status, fn.__name__)
     fn.launches += 1
     return out
 

@@ -2,7 +2,11 @@
 (port of ``cilrs_tpu/render/raster.py``).
 
 ``render_frame(net, world, light_state) -> [E, H, W, 3] float32`` renders the
-ego camera of every env at once. Geometry is analytic, as in the JAX package:
+ego camera of every env at once: on CUDA tensors in the hand-written kernels
+of ``csrc/render.cu`` (``ops/render.py``; about 8 launches, the sin hashes
+among them), on CPU tensors in torch ops (``render_frame_plain``, which the
+JAX parity tests hold); on the card the kernels give the torch ops' frame
+bit for bit. Geometry is analytic, as in the JAX package:
  - ground plane z=0 classified against the K lane segments nearest the ego
    (road / lane-marking / sidewalk -> asphalt / paint / pavement / grass);
  - vehicles and the nearest buildings as vertical oriented boxes (slab test
@@ -36,6 +40,8 @@ bf16 like the ground classification.
 
 from __future__ import annotations
 
+import functools
+import math
 import os
 
 import numpy as np
@@ -44,6 +50,7 @@ import torch
 from cilrs_tpu_torch.core.geometry import const, take
 from cilrs_tpu_torch.core.state import WorldState
 from cilrs_tpu_torch.maps.network import RoadNetwork
+from cilrs_tpu_torch.ops import render as kernels
 from cilrs_tpu_torch.ops.sinf import grain_hash, grain_texture
 from cilrs_tpu_torch.render import weather as wx
 from cilrs_tpu_torch.render.camera import CameraSpec, camera_position, pixel_coords, ray_directions
@@ -294,30 +301,56 @@ _MB_SCALES = (0.94, 0.88)  # zoom-blur sample scales toward the FOE
 _MB_SPEED_NORM = 36.0  # km/h at which blur weight saturates
 
 
+def _zoom_axis(n: int, f: float) -> tuple:
+    """A zoom's taps along an axis of n pixels scaled by f about its center:
+    the lower and upper source index and the upper's weight (float32)."""
+    c = (n - 1) / 2.0
+    s = c + (np.arange(n) - c) * f
+    i0 = np.clip(np.floor(s).astype(np.int64), 0, n - 1)
+    return i0, np.minimum(i0 + 1, n - 1), np.float32(s - i0)
+
+
 def _zoom_sample(img: torch.Tensor, f: float) -> torch.Tensor:
     """Bilinear resample of img [E, H, W, 3] scaled by factor f about the
     image center; the coordinates are constants of (H, W, f)."""
     _, H, W, _ = img.shape
     dev = img.device
-    cy, cx = (H - 1) / 2.0, (W - 1) / 2.0
-    sy = cy + (np.arange(H) - cy) * f
-    sx = cx + (np.arange(W) - cx) * f
-    y0 = np.clip(np.floor(sy).astype(np.int64), 0, H - 1)
-    y1 = np.minimum(y0 + 1, H - 1)
-    fy = const(tuple(np.float32(sy - y0).tolist()), torch.float32, dev)[:, None, None]
+    y0, y1, fy = _zoom_axis(H, f)
+    fy = const(tuple(fy.tolist()), torch.float32, dev)[:, None, None]
     ty0, ty1 = (const(tuple(a.tolist()), torch.int64, dev) for a in (y0, y1))
     rows = img[:, ty0] * (1.0 - fy) + img[:, ty1] * fy
-    x0 = np.clip(np.floor(sx).astype(np.int64), 0, W - 1)
-    x1 = np.minimum(x0 + 1, W - 1)
-    fx = const(tuple(np.float32(sx - x0).tolist()), torch.float32, dev)[None, :, None]
+    x0, x1, fx = _zoom_axis(W, f)
+    fx = const(tuple(fx.tolist()), torch.float32, dev)[None, :, None]
     tx0, tx1 = (const(tuple(a.tolist()), torch.int64, dev) for a in (x0, x1))
     return rows[:, :, tx0] * (1.0 - fx) + rows[:, :, tx1] * fx
+
+
+@functools.cache
+def zoom_taps(height: int, width: int, device: torch.device) -> torch.Tensor:
+    """The blur kernel's taps [2, 3 (H + W)] float32: for each of
+    ``_MB_SCALES``, ``_zoom_sample``'s y0, y1, fy over the rows and x0, x1, fx
+    over the columns."""
+    rows = [np.concatenate([np.concatenate([a.astype(np.float32) for a in _zoom_axis(n, f)])
+                            for n in (height, width)]) for f in _MB_SCALES]
+    return torch.from_numpy(np.stack(rows)).to(device)
 
 
 def motion_blur(img: torch.Tensor, speed_kmh: torch.Tensor) -> torch.Tensor:
     """Speed-dependent zoom blur about the focus of expansion (image center):
     img [E, H, W, 3], speed_kmh [E]. CARLA's RGB camera applies motion blur by
-    default, so the reference's frames carry this speed cue."""
+    default, so the reference's frames carry this speed cue. One kernel launch
+    on CUDA tensors (``ops/render.py:render_blur``), ``motion_blur_plain`` on
+    CPU tensors."""
+    if img.device.type == "cuda":
+        _, H, W, _ = img.shape
+        # The blur's constants are the same for every camera.
+        return kernels.render_blur(img, speed_kmh, zoom_taps(H, W, img.device),
+                                   kernel_consts(CAMERA))
+    return motion_blur_plain(img, speed_kmh)
+
+
+def motion_blur_plain(img: torch.Tensor, speed_kmh: torch.Tensor) -> torch.Tensor:
+    """``motion_blur`` in torch ops."""
     samples = [img] + [_zoom_sample(img, f) for f in _MB_SCALES]
     b = torch.clamp(speed_kmh / _MB_SPEED_NORM, 0.0, 1.0) * 0.85
     k = torch.arange(float(len(samples)), device=img.device)
@@ -335,7 +368,87 @@ def render_frame(
     spec: CameraSpec = CAMERA,
     include_ego: bool = False,  # True for chase/spectator views
 ) -> torch.Tensor:
-    """Render each env's camera. Returns [E, H, W, 3] float32 in [0, 1]."""
+    """Render each env's camera. Returns [E, H, W, 3] float32 in [0, 1]. On
+    CUDA tensors the kernels of ``csrc/render.cu`` (``render_frame_kernels``),
+    which give ``render_frame_plain``'s frame on the card bit for bit; on CPU
+    tensors the torch composition (``render_frame_plain``)."""
+    if world.veh_pos.device.type == "cuda":
+        return render_frame_kernels(net, world, light_state, spec, include_ego)
+    return render_frame_plain(net, world, light_state, spec, include_ego)
+
+
+@functools.cache
+def kernel_consts(spec: CameraSpec):
+    """The render kernels' constants for camera ``spec``, by the names that
+    ``csrc/render.cu:RENDER_CONSTS`` gives them, each as
+    ``render_frame_plain`` rounds it. A tensor divided by a
+    Python number on the card is multiplied by the number's reciprocal, taken
+    in double and rounded to float32, so the divisors go as those."""
+    def recip(x: float) -> float:
+        return float(np.float32(1.0 / x))
+
+    pitch = math.radians(spec.pitch_deg)
+    return kernels.pack_consts(dict(
+        inv_w=recip(spec.width), inv_h=recip(spec.height), tan_h=spec.tan_half_fov,
+        tan_v=spec.tan_half_fov * 0.75, cos_pitch=math.cos(pitch), sin_pitch=math.sin(pitch),
+        offset_fwd=spec.offset_fwd, offset_up=spec.offset_up, far_plane=spec.far,
+        road_half_w=ROAD_HALF_W, sidewalk_out=SIDEWALK_OUT, marking_lat=_BF_MARKING_LAT,
+        marking_half_w=_BF_MARKING_HALF_W, inf=INF, bf_inf=_BF_INF,
+        # _junction_markings' bounds
+        cw_lane=_bf16(2.2), cw_bar=_bf16(-0.6), cw_walk0=_bf16(0.6), cw_walk1=_bf16(2.2),
+        cw_walk_w=_bf16(2.6), cw_period=_bf16(1.2), cw_stripe=_bf16(0.6),
+        veh_half_l=4.7 / 2, veh_half_w=2.0 / 2, veh_height=VEH_HEIGHT,
+        # the poles: 0.12 m cylinders 2.4 m right of the stop line
+        ped_r2=PED_RADIUS * PED_RADIUS, ped_height=PED_HEIGHT, pole_r2=0.12 * 0.12,
+        pole_height=LIGHT_POLE_H, head_r2=LIGHT_HEAD_R * LIGHT_HEAD_R, pole_offset=2.4,
+        # the sky's elevation / 0.6, the headlight's cone / 0.03 and falloff / 25
+        inv_elev=recip(0.6), inv_cone=recip(0.03), inv_near=recip(25.0),
+        inv_blur_speed=recip(_MB_SPEED_NORM), blur_peak=0.85, blur_exp=(0.0, 1.0, 2.0),
+        grass=_GRASS, sidewalk=_SIDEWALK, asphalt=_ASPHALT, marking=_MARKING,
+        taillight=_TAILLIGHT, pole=_POLE, ped=_PED_COLOR, light_colors=_LIGHT_COLORS,
+        veh_colors=_VEH_COLORS, bldg_colors=_BLDG_COLORS, sky_top=wx._SKY_TOP,
+        sky_horizon=wx._SKY_HORIZON, ambient=wx._AMBIENT, fog=wx._FOG_DENSITY, rain=wx._RAIN,
+        wet=wx._WET, night=wx._NIGHT))
+
+
+def render_frame_kernels(net: RoadNetwork, world: WorldState, light_state: torch.Tensor,
+                         spec: CameraSpec = CAMERA, include_ego: bool = False) -> torch.Tensor:
+    """``render_frame`` through the render kernels: the scene records, the
+    ground points and rain columns, the sin hashes over them (called where
+    ``render_frame_plain`` calls them), the frame, the blur and the clamp."""
+    E, V, P = world.num_envs, world.num_vehicles, world.num_pedestrians
+    num_wp, num_bldg, L = net.num_waypoints, net.bldg_xy.shape[0], net.num_lights
+    segments = min(NUM_NEAR_SEGMENTS, num_wp)
+    near_bldg, near_lights = min(NUM_NEAR_BUILDINGS, num_bldg), min(NUM_NEAR_LIGHTS, L)
+    first_box = 0 if include_ego else 1
+    dims = dict(envs=E, height=spec.height, width=spec.width, vehicles=V, walkers=P,
+                waypoints=num_wp, max_next=net.wp_next.shape[1], buildings=num_bldg, lights=L,
+                segments=segments, near_buildings=near_bldg, near_lights=near_lights,
+                first_box=first_box, lamps=_LAMPS, night_lamps=_NIGHT_LAMPS,
+                crosswalks=_CROSSWALKS,
+                record=kernels.record_floats(segments, V - first_box + near_bldg, P, near_lights))
+    consts = kernel_consts(spec)
+    inputs = {name: getattr(world, name) for name in (
+        "veh_pos", "veh_yaw", "veh_speed", "veh_alive", "veh_control", "veh_reverse", "ped_pos",
+        "ped_alive", "time_s", "weather_idx")}
+    inputs.update({name: getattr(net, name) for name in (
+        "wp_xy", "wp_next", "wp_is_junction", "bldg_xy", "bldg_yaw", "bldg_half", "bldg_h",
+        "light_xy", "light_yaw")}, light_state=light_state)
+    records, speed_kmh = kernels.render_prep(inputs, dims, consts)
+    sxy, cols, cols_t = kernels.render_points(records, dims, consts)
+    tex = grain_texture(sxy)
+    img = kernels.render_shade(records, tex, wx._hash01(cols), wx._hash01(cols_t), dims, consts)
+    return torch.clamp(motion_blur(img, speed_kmh), 0.0, 1.0)
+
+
+def render_frame_plain(
+    net: RoadNetwork,
+    world: WorldState,
+    light_state: torch.Tensor,
+    spec: CameraSpec = CAMERA,
+    include_ego: bool = False,
+) -> torch.Tensor:
+    """``render_frame`` in torch ops, the render kernels' plain version."""
     H, W = spec.height, spec.width
     E = world.num_envs
     dev = world.veh_pos.device

@@ -11,6 +11,9 @@ records nothing (the profiler slows the host, so its samples would be wrong)
 and opens a ``record_function("cilrs::<name>")`` range instead, which puts the
 span on the profiler's timeline, the device trace's clock.
 
+``kernel_launch(name)`` puts a hand-written kernel's launch in a profiler
+operation, so that a profiler links the kernel to the ranges around it.
+
 ``trace()`` wraps a block in a ``torch.profiler`` run (the CPU and, where
 there is a GPU, CUDA activities) and writes a Chrome trace into ``logdir``,
 where the spans show as ``cilrs::`` ranges over the device's kernels.
@@ -93,6 +96,23 @@ class span:
                 return fn(*args, **kwargs)
 
         return call
+
+
+_NO_OPERATION = contextlib.nullcontext()
+
+
+def kernel_launch(name: str):
+    """The context of a hand-written kernel's launch through ctypes
+    (``ops/``): while a ``torch.profiler`` runs, a profiler operation
+    ``kernel::<name>``, to which the profiler links the launched kernel, and
+    through it every range around it, as it links PyTorch's own kernels to
+    their operators. A launch in no operation is linked to none: a
+    ``record_function`` range (a span's, a benchmark's) is a user scope, and
+    the profiler links only an operation's launches. Outside a profiler,
+    nothing."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch._C._profiler._RecordFunctionFast("kernel::" + name)
+    return _NO_OPERATION
 
 
 def span_summary() -> dict:

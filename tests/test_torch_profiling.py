@@ -148,6 +148,21 @@ def test_under_a_profiler_spans_record_nothing_and_open_ranges():
     assert set(span_summary()) == {"test_prof_after"}
 
 
+def test_kernel_launch_is_an_operation_under_a_profiler_only():
+    """A kernel's launch context is a ``kernel::`` operation inside the ranges
+    around it while a profiler runs, and nothing outside one."""
+    assert profiling.kernel_launch("test_kernel") is profiling._NO_OPERATION
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with span("test_launch_outer"):
+            with profiling.kernel_launch("test_kernel"):
+                torch.ones(8) + 1
+    events = {e.name: e for e in prof.events()}
+    op = events["kernel::test_kernel"]
+    assert op.cpu_parent is not None and op.cpu_parent.name == "cilrs::test_launch_outer"
+    assert any(c.name == "aten::add" for c in op.cpu_children)
+    assert profiling.kernel_launch("test_kernel") is profiling._NO_OPERATION
+
+
 def test_trace_writes_the_spans_into_a_chrome_trace(tmp_path):
     logdir = tmp_path / "profile"
     with trace(str(logdir)):
