@@ -29,7 +29,7 @@ def main(argv=None) -> int:
     p.add_argument("--fault", default=None, choices=("unchanged", "half", "altered"))
     p.add_argument("--no-control", action="store_true")
     p.add_argument("--fp32", action="store_true",
-                   help="a witness: the program's CILRS with its autocast off")
+                   help="a witness: the program's policy in float32 (its autocast off)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("portbench.calibrate: the readings are taken on a CUDA device; none is present",

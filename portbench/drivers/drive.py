@@ -2,7 +2,8 @@
 the ego at a pinned spawn point, a one-route pool to the destination, the
 pinned-destination protocol) and ``DriveRun.chunk``, each chunk followed by
 ``cli.drive``'s chunk end: the host read of ``HOST_KEYS`` and
-``compute_scores``. The CILRS holds the run's weights.
+``compute_scores``. The configuration's policy architecture holds the run's
+weights; the run renders the configuration's camera.
 
 Window: chunks until ``--seconds`` have passed; ``drive_ticks_per_s`` is the
 window's ticks over its wall, the chunk ends inside. Traced run: the same
@@ -17,7 +18,7 @@ import contextlib
 
 import torch
 
-from portbench import counts, faults, simrun, trace
+from portbench import faults, simrun, trace
 from portbench.harness import sync, window
 from portbench.reference import sim as ref_sim
 
@@ -25,7 +26,6 @@ from portbench.reference import sim as ref_sim
 def prepare(ctx, fp32=False):
     """Set-up: the drive run with the run's weights, the weights, and the
     start the reference checks, after the warm-up chunks."""
-    from cilrs_tpu_torch.agent.driver import model_policy
     from cilrs_tpu_torch.cli import drive as drive_cli
     from cilrs_tpu_torch.maps.town import make_town01
 
@@ -33,8 +33,8 @@ def prepare(ctx, fp32=False):
     run, _ = drive_cli.make_drive_run(make_town01(), sim["spawn"], sim["destination"],
                                       sim["vehicles"], sim["walkers"], sim["weather"],
                                       seed=ctx.seed_for(1), autopilot=True, device=dev)
-    model, sd = simrun.program_policy(ctx.config["model"], ctx.seed_for(2), dev, fp32)
-    run.policy = model_policy(model)
+    run.policy, sd = simrun.program_policy(ctx, fp32)
+    simrun.set_camera(run, simrun.camera(sim))
     start = (run.net, run.pool, run.state.world)
     for _ in range(ctx.traffic["warmup_chunks"]):
         chunk_end(run, run.chunk())
@@ -64,7 +64,7 @@ def run(ctx) -> dict:
     rec = {"issue_ms_per_unit": win["issue_s"] * 1e3 / (n * T),
            "wall_ms_per_unit": wall * 1e3 / (n * T),
            "chunk_end_ms": win["end_s"] * 1e3 / n,
-           "mfu_pct": rate * counts.cilrs_forward_flops() / counts.PEAK_BF16_FLOPS * 100}
+           "mfu_pct": simrun.mfu_pct(ctx, rate)}
     if ctx.trace:
         rec.update(trace.profile(lambda: drive.chunk(tr["profile_ticks"]), tr["profile_ticks"],
                                  simrun.tick_ranges(drive)))
@@ -88,8 +88,8 @@ def checked_chunk(drive, ticks: int):
 
 
 def readings(ctx, sd, start, ticks, scored, quant=False) -> dict:
-    model = ref_sim.policy_model(ctx.config["model"], sd, ctx.device, quant)
-    ref = ref_sim.drive_start(ctx.config["sim"], ctx.seed_for(1), model, ctx.device)
+    policy = ref_sim.reference_policy(ctx.config["model"], sd, ctx.device, quant)
+    ref = ref_sim.drive_start(ctx.config["sim"], ctx.seed_for(1), policy, ctx.device)
     sample = simrun.sample_ticks(len(ticks), ctx.traffic["check_ticks"], ctx.seed_for(4))
     out = ref_sim.follow(ref, start[1], ticks, sample, loop_routes=False, quant=quant)
     out["start_mismatch"] = ref_sim.start_mismatch(ref, *start)

@@ -1,7 +1,8 @@
 """The headline fleet: ``bench/env_steps.py:BenchFleet.chunk`` in drive mode,
 no frames kept, on a fleet built from the seed as ``make_bench_fleet`` builds
 it (the map, a chained route pool and one spawned world broadcast over the
-envs, env e in weather e % 5, the CILRS at the configuration's widths).
+envs, env e in weather e % 5, the configuration's policy architecture at its
+widths, and its camera).
 
 Window: chunks of ``ticks`` ticks, each issued and then synchronised, until
 ``--seconds`` have passed; ``env_steps_per_s`` is envs x ticks of the
@@ -19,14 +20,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from portbench import counts, faults, simrun, trace
+from portbench import faults, simrun, trace
 from portbench.harness import sync, window
 from portbench.reference import sim as ref_sim
 
 
 def build(ctx, fp32=False):
     """The program's fleet for this run, and its map, pool and first world."""
-    from cilrs_tpu_torch.agent.driver import make_driver_state, model_policy
+    from cilrs_tpu_torch.agent.driver import make_driver_state
     from cilrs_tpu_torch.agent.scenario import spawn_world
     from cilrs_tpu_torch.bench.env_steps import BenchFleet
     from cilrs_tpu_torch.config import load_weather_table
@@ -43,11 +44,12 @@ def build(ctx, fp32=False):
     world = spawn_world(net, sim["vehicles"], sim["walkers"], rng)
     worlds = world_from_arrays([world] * E, dev)
     worlds = worlds.replace(weather_idx=torch.arange(E, device=dev) % sim["weathers"])
-    model, sd = simrun.program_policy(ctx.config["model"], ctx.seed_for(2), dev, fp32)
+    policy, sd = simrun.program_policy(ctx, fp32)
     fleet = BenchFleet(net=net.to(dev), pool=tree_map(lambda x: x[0], pool_from_arrays([pool], dev)),
                        wt=load_weather_table(device=dev), params=default_vehicle_params(dev),
-                       policy=model_policy(model), state=make_driver_state(worlds), ticks=tr["ticks"],
+                       policy=policy, state=make_driver_state(worlds), ticks=tr["ticks"],
                        generator=torch.Generator(device=dev).manual_seed(ctx.seed_for(3)))
+    simrun.set_camera(fleet, simrun.camera(sim))
     return fleet, sd
 
 
@@ -78,7 +80,7 @@ def run(ctx) -> dict:
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     rec = {"issue_ms_per_unit": win["issue_s"] * 1e3 / (T * win["chunks"]),
            "wall_ms_per_unit": win["wall_s"] * 1e3 / (T * win["chunks"]),
-           "mfu_pct": rate * counts.cilrs_forward_flops() / counts.PEAK_BF16_FLOPS * 100}
+           "mfu_pct": simrun.mfu_pct(ctx, rate)}
     if ctx.trace:
         short = dataclasses.replace(fleet, ticks=tr["profile_ticks"])
         prof = trace.profile(short.chunk, tr["profile_ticks"], simrun.tick_ranges(short))
@@ -97,8 +99,8 @@ def run(ctx) -> dict:
 
 
 def readings(ctx, sd, start, ticks, quant=False) -> dict:
-    model = ref_sim.policy_model(ctx.config["model"], sd, ctx.device, quant)
-    ref = ref_sim.bench_start(ctx.config["sim"], ctx.traffic["envs"], ctx.seed_for(1), model,
+    policy = ref_sim.reference_policy(ctx.config["model"], sd, ctx.device, quant)
+    ref = ref_sim.bench_start(ctx.config["sim"], ctx.traffic["envs"], ctx.seed_for(1), policy,
                               ctx.device)
     sample = simrun.sample_ticks(len(ticks), ctx.traffic["check_ticks"], ctx.seed_for(4))
     out = ref_sim.follow(ref, start[1], ticks, sample, loop_routes=True, quant=quant)

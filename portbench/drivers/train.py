@@ -2,7 +2,8 @@
 ``cli.train`` calls it, on a table of random u8 frames and synthetic labels
 made on the device from the seed (the reference collection's row count, in
 the program's page layout), with the run's weights loaded into the program's
-model as ``create_train_state`` returns it.
+model as ``create_train_state`` returns it. It trains the CILRS: its
+``ModelConfig`` and its FLOPs come from ``policies/cilrs.py``.
 
 Set-up runs the first train group (``train_group``: one gather launch of
 K x B rows and K steps) and its EMA update. The window opens at the second
@@ -24,9 +25,10 @@ import time
 import numpy as np
 import torch
 
-from portbench import counts, trace
+from portbench import counts, harness, trace
 from portbench.harness import sync
 from portbench.reference import train as ref_train
+from portbench.reference.frozen.render.camera import CameraSpec
 from portbench.weights import load_into, seeded_state_dict
 
 
@@ -60,14 +62,22 @@ def make_table(ctx):
     return table, labels_dataset(labels)
 
 
+def cilrs(ctx):
+    """``policies/cilrs.py``, the architecture this driver trains; a
+    configuration of another refuses."""
+    if ctx.config["model"].get("arch") != "cilrs":
+        raise ValueError(f"drivers/train.py trains the CILRS, not model.arch "
+                         f"{ctx.config['model'].get('arch')!r}")
+    return harness.architecture(ctx.config["model"])
+
+
 def train_config(ctx):
-    from cilrs_tpu_torch.config import (LossConfig, ModelConfig, OptimizerConfig, TrainConfig,
+    from cilrs_tpu_torch.config import (LossConfig, OptimizerConfig, TrainConfig,
                                         TrainingConfig)
 
     c, m, t = ctx.config, ctx.config["model"], ctx.config["training"]
     return TrainConfig(
-        model=ModelConfig(num_commands=m["num_commands"], dropout=m["dropout"],
-                          stage_sizes=tuple(m["stage_sizes"]), speed_skip=m["speed_skip"]),
+        model=cilrs(ctx).program_config(m, m["dropout"]),
         loss=LossConfig(**c["loss"]), optimizer=OptimizerConfig(**c["optimizer"]),
         training=TrainingConfig(batch_size=t["batch_size"], epochs=t["epochs"],
                                 val_fraction=t["val_fraction"],
@@ -235,7 +245,7 @@ def run(ctx) -> dict:
     rate = steps * B / probe.wall_s
     rec = {"issue_ms_per_unit": probe.issue_s * 1e3 / steps,
            "wall_ms_per_unit": probe.wall_s * 1e3 / steps,
-           "mfu_pct": rate * counts.cilrs_train_flops() / counts.PEAK_BF16_FLOPS * 100}
+           "mfu_pct": rate * train_flops(ctx) / counts.PEAK_BF16_FLOPS * 100}
     if probe.profile is not None:
         rec.update(probe.profile)
         k = trace.kernel_ms(probe.profile, "gather_rows")
@@ -249,6 +259,12 @@ def run(ctx) -> dict:
     return {"e2e": {"train_frames_per_s": rate}, "rec": rec, "attempted": probe.groups,
             "failed": 0 if finite else probe.groups, "memory_peak_bytes": peak,
             "checked": {k: (got[k], lim[k]) for k in lim}}
+
+
+def train_flops(ctx) -> int:
+    """The CILRS's FLOPs of one trained frame of the table's frame shape."""
+    h, w, _ = ctx.config["dataset"]["frame_shape"]
+    return cilrs(ctx).train_flops(ctx.config["model"], CameraSpec(height=h, width=w))
 
 
 def calibrate(ctx, control=True, fp32=False) -> dict:

@@ -13,25 +13,34 @@ from portbench.trace import patched
 
 def sim_fault(name: str, owner=None):
     """A simulator fault: ``unchanged`` (the action returns its input state),
-    ``half`` (the policy computes the first half of the envs, zeros for the
-    rest), ``altered`` (the policy's steer moved by 0.25). ``owner`` holds
-    the policy (a fleet or a drive run)."""
+    ``half`` (the policy computes the first half of the envs, every tensor
+    argument cut along its first dimension, and zeros for the rest),
+    ``altered`` (the policy's steer, the first column of what it returns,
+    moved by 0.25). ``owner`` holds the policy (a fleet or a drive run),
+    whatever its architecture."""
     from cilrs_tpu_torch.agent import driver
 
     if name == "unchanged":
         return patched(driver, "env_act", lambda f: lambda state, *a, **k: (state, f(state, *a, **k)[1]))
     if name == "half":
         def half(f):
-            def call(img, speed, cmd):
-                n = max(img.shape[0] // 2, 1)
-                out = torch.zeros(img.shape[0], 3, device=img.device)
-                out[:n] = f(img[:n], speed[:n], cmd[:n])
+            def call(*args):
+                envs = next(a for a in args if isinstance(a, torch.Tensor)).shape[0]
+                n = max(envs // 2, 1)
+                got = f(*(a[:n] if isinstance(a, torch.Tensor) else a for a in args))
+                out = got.new_zeros((envs,) + got.shape[1:])
+                out[:n] = got
                 return out
             return call
         return patched(owner, "policy", half)
     if name == "altered":
-        return patched(owner, "policy", lambda f: lambda *a: f(*a) + torch.tensor(
-            [0.25, 0.0, 0.0], device=a[0].device))
+        def altered(f):
+            def call(*args):
+                out = f(*args).clone()
+                out[:, 0] += 0.25
+                return out
+            return call
+        return patched(owner, "policy", altered)
     raise ValueError(name)
 
 

@@ -4,9 +4,11 @@ readers found by name; the run's context and clocks; the result line.
 A cell is ``workloads/<cell>.json`` (its configuration, its driver, its
 traffic parameters, its limits and its ``why``); a configuration is
 ``configs/<config>.json``; a driver is ``drivers/<driver>.py`` with a
-``run(ctx)``; a per-layer metric is ``metrics/<metric>.py`` with a
-``read(rec)`` that returns a number or None. Later cells, configurations and
-metrics are new files, found by the names in ``BENCHMARK.json``.
+``run(ctx)``; a policy architecture is ``policies/<arch>.py``, named by a
+configuration's ``model.arch``; a per-layer metric is ``metrics/<metric>.py``
+with a ``read(rec)`` that returns a number or None. Later cells,
+configurations, architectures and metrics are new files, found by the names
+in ``BENCHMARK.json`` and in the configurations.
 """
 
 from __future__ import annotations
@@ -41,6 +43,18 @@ def load_module(kind: str, name: str):
         sys.modules[full] = mod
         spec.loader.exec_module(mod)
     return sys.modules[full]
+
+
+def architecture(model_cfg: dict):
+    """The module ``policies/<arch>.py`` of a configuration's ``model.arch``:
+    its ``reference``, ``program``, ``reference_policy``, ``forward_flops``,
+    ``train_flops`` and ``tiny`` (``policies/cilrs.py`` says what each is)."""
+    arch = model_cfg.get("arch")
+    if not isinstance(arch, str) or not os.path.isfile(os.path.join(PB_DIR, "policies",
+                                                                    f"{arch}.py")):
+        raise ValueError(f"the configuration's model.arch {arch!r} names no "
+                         f"portbench/policies/<arch>.py")
+    return load_module("policies", arch)
 
 
 def benchmark() -> dict:

@@ -4,8 +4,10 @@ compound over ticks into a different drive.
 
 At tick t the program recorded its state s_t, its float frame, its controls
 and its state s_t+1. The reference, the frozen copy in float32 with the plain
-sin hashes, renders s_t itself, runs the CILRS on its own frame, and acts on
-s_t with its own controls and the same pedestrian draws. The numbers:
+sin hashes, renders s_t itself through the configuration's camera, runs the
+architecture's reference policy (``policies/<arch>.py:reference_policy``) on
+its own frame and observation, and acts on s_t with its own controls and the
+same pedestrian draws. The numbers:
 
  - ``frame_gap``: mean |frame - reference frame| over the sampled ticks' pixels;
  - ``controls_rms``: root mean square of controls - reference controls (the
@@ -22,7 +24,7 @@ s_t with its own controls and the same pedestrian draws. The numbers:
 
 The control (``quant=True``) is the reference one precision down: its frame
 and its next state rounded to bfloat16 (the simulator states float32) and
-its CILRS in fp8 e4m3 with a per-tensor scale (the policy states bfloat16),
+its policy in fp8 e4m3 with a per-tensor scale (the policy states bfloat16),
 weights and the inputs of every convolution and linear module.
 """
 
@@ -34,6 +36,7 @@ import sys
 import numpy as np
 import torch
 
+from portbench import harness
 from portbench.reference.frozen.agent import driver as F_driver
 from portbench.reference.frozen.agent.scenario import spawn_world
 from portbench.reference.frozen.config import load_weather_table, weather_index
@@ -42,8 +45,7 @@ from portbench.reference.frozen.core.state import default_vehicle_params, tree_m
 from portbench.reference.frozen.evaluation.scoring import compute_scores
 from portbench.reference.frozen.maps.routing import chained_route_pool, trace_route
 from portbench.reference.frozen.maps.town import make_town01
-from portbench.reference.frozen.ops.image import normalize
-from portbench.weights import reference_model
+from portbench.reference.frozen.render.camera import CameraSpec
 
 FROZEN = "portbench.reference.frozen."
 STATE_LEAVES = ("veh_pos", "veh_yaw", "veh_speed", "veh_control")
@@ -98,9 +100,10 @@ def fp8(x: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_(model: torch.nn.Module) -> None:
-    """The control's CILRS: fp8 weights, and fp8 inputs into every
-    convolution and linear module (the branch heads call ``F.linear`` on
-    their weights directly, so only their weights are rounded)."""
+    """The control's policy: fp8 weights, and fp8 inputs into every
+    convolution and linear module (a layer whose weight the forward passes to
+    ``F.linear`` itself, as the CILRS's branch heads do, has only its weight
+    rounded)."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
@@ -108,34 +111,45 @@ def quantize_(model: torch.nn.Module) -> None:
                 m.register_forward_pre_hook(lambda _, args: (fp8(args[0]),) + args[1:])
 
 
-def policy_model(model_cfg: dict, sd: dict, device, quant: bool = False) -> torch.nn.Module:
-    """The frozen CILRS in float32 and eval mode holding the run's weights
-    (in fp8 for the control)."""
-    model = reference_model(model_cfg, 0.0).to(device)
+def camera(sim: dict) -> CameraSpec:
+    """The configuration's camera: ``sim.camera``'s fields by name, the rest
+    ``CameraSpec``'s defaults."""
+    return CameraSpec(**sim["camera"])
+
+
+def reference_policy(model_cfg: dict, sd: dict, device, quant: bool = False):
+    """The configuration's architecture's reference policy
+    (``policies/<arch>.py:reference_policy``) over its reference model in
+    float32 and eval mode holding the run's weights (in fp8 for the
+    control): a function of (frame01, obs, state, pool) to controls [E, 3]."""
+    arch = harness.architecture(model_cfg)
+    model = arch.reference(model_cfg).to(device)
     model.load_state_dict(sd)
     model.eval()
     if quant:
         quantize_(model)
-    return model
+
+    def policy(frame01: torch.Tensor, obs: dict, state, pool) -> torch.Tensor:
+        with torch.no_grad():
+            return arch.reference_policy(model, frame01, obs, state, pool)
+
+    return policy
 
 
 @dataclasses.dataclass
 class SimRef:
-    """What the reference builds from the seed, and its policy."""
+    """What the reference builds from the seed, its camera and its policy."""
 
     net: object
     pool: object  # [E, K, R, ...]
     world: object  # the first world
     wt: object
     params: object
-    model: torch.nn.Module  # the frozen CILRS, float32, eval mode
-
-    def policy(self, frame01: torch.Tensor, speed_norm, cmd) -> torch.Tensor:
-        with torch.no_grad():
-            return self.model(normalize(frame01), speed_norm, cmd)[0]
+    cam: CameraSpec
+    policy: object  # ``reference_policy``'s function
 
 
-def bench_start(sim: dict, envs: int, seed: int, model, device) -> SimRef:
+def bench_start(sim: dict, envs: int, seed: int, policy, device) -> SimRef:
     """bench.py's fleet as the reference builds it: the 3x3-block town, a
     chained pool and one spawned world from ``RandomState(seed)``, env e in
     weather e % 5."""
@@ -147,11 +161,11 @@ def bench_start(sim: dict, envs: int, seed: int, model, device) -> SimRef:
     worlds = worlds.replace(weather_idx=torch.arange(envs, device=device) % sim["weathers"])
     pools = tree_map(lambda x: x.expand((envs,) + x.shape[1:]), pool_from_arrays([pool], device))
     return SimRef(net=net.to(device), pool=pools, world=worlds,
-                  wt=load_weather_table(device=device),
-                  params=default_vehicle_params(device), model=model)
+                  wt=load_weather_table(device=device), params=default_vehicle_params(device),
+                  cam=camera(sim), policy=policy)
 
 
-def drive_start(sim: dict, seed: int, model, device) -> SimRef:
+def drive_start(sim: dict, seed: int, policy, device) -> SimRef:
     """The 5-weather protocol's run as the reference builds it: Town01, the
     ego at spawn point ``spawn``, a one-route pool to ``destination``."""
     net = make_town01()
@@ -164,7 +178,7 @@ def drive_start(sim: dict, seed: int, model, device) -> SimRef:
     pool = {k: v[None] for k, v in route.items()}
     return SimRef(net=net.to(device), pool=pool_from_arrays([pool], device),
                   world=world_from_arrays([world], device), wt=load_weather_table(device=device),
-                  params=default_vehicle_params(device), model=model)
+                  params=default_vehicle_params(device), cam=camera(sim), policy=policy)
 
 
 def route_mismatch(ref_pool, pool) -> int:
@@ -207,13 +221,13 @@ def follow(ref: SimRef, pool, ticks: list[dict], sample: list[int], loop_routes:
     for t in sample:
         rec = ticks[t]
         s = to_frozen(rec["state"], classes)
-        obs = F_driver.env_observe(s, ref.net, pool, mode="drive")
+        obs = F_driver.env_observe(s, ref.net, pool, ref.cam, mode="drive")
         frame = obs["frame"]
         if quant:
             frame = frame.to(torch.bfloat16).float()
         frame_sum += float((rec["frame"].float() - frame).abs().sum())
         frame_n += frame.numel()
-        ctl = ref.policy(frame, obs["speed_norm"], obs["cmd"])
+        ctl = ref.policy(frame, obs, s, pool)
         d = rec["controls"].float() - ctl
         sq_sum += float((d.double() ** 2).sum())
         sq_n += d.numel()

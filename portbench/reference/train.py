@@ -43,8 +43,8 @@ import torch
 from portbench.reference.frozen.config import LossConfig
 from portbench.reference.frozen.models.losses import cilrs_loss
 from portbench.reference.frozen.ops.image import augment_batch, normalize
+from portbench import harness
 from portbench.reference.sim import fp8
-from portbench.weights import reference_model
 
 STEPS = 3
 
@@ -102,7 +102,7 @@ def _clip_(params, max_norm: float):
 def steps(cfg: dict, sd: dict, batches: list[dict], seed: int, device, quant=False) -> dict:
     """The reference's first ``STEPS`` train steps from the weights ``sd``:
     the losses, the first gradient as Adam got it, the parameters after."""
-    model = reference_model(cfg["model"], cfg["model"]["dropout"]).to(device)
+    model = harness.architecture(cfg["model"]).reference(cfg["model"]).to(device)
     model.load_state_dict(sd)
     model.train()
     if quant:

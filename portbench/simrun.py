@@ -1,17 +1,19 @@
-"""What the fleet and drive drivers share: the program's CILRS with the run's
-weights, the tick's layer ranges, the hash calls of a tick, and the record of
+"""What the fleet and drive drivers share: the program's policy of the
+configuration's architecture with the run's weights, the configuration's
+camera, the tick's layer ranges, the hash calls of a tick, and the record of
 a chunk that the reference follows (``reference/sim.py``)."""
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 
 import numpy as np
 import torch
 
-from portbench import counts, trace
-from portbench.weights import load_into, seeded_state_dict
+from portbench import counts, harness, trace
+from portbench.weights import seeded_state_dict
 
 # The sin-hash entry points as their callers look them up: (module path,
 # attribute, entry point).
@@ -20,23 +22,45 @@ HASH_SITES = (("cilrs_tpu_torch.render.weather", "hash01", "hash01"),
               ("cilrs_tpu_torch.agent.driver", "reverse_steer", "reverse_steer"))
 
 
-def program_policy(model_cfg: dict, seed: int, device, fp32: bool = False):
-    """The program's CILRS in eval mode, as the drive CLIs build it
-    (``train.state.create_train_state``: bf16 autocast and ``channels_last``
-    on the card, the CLIs' float32 settings), holding the run's weights.
-    ``fp32`` turns its autocast off: a witness for the check, never a run."""
-    from cilrs_tpu_torch.config import ModelConfig, TrainConfig
-    from cilrs_tpu_torch.train.state import create_train_state
+def program_policy(ctx, fp32: bool = False):
+    """The run's weights, made from the seed for the configuration's
+    architecture, and the program's fleet policy holding them
+    (``policies/<arch>.py:program``; ``fp32`` is its witness in float32,
+    never a run). Returns (policy, weights)."""
+    model_cfg = ctx.config["model"]
+    sd = seeded_state_dict(model_cfg, ctx.seed_for(2), ctx.device)
+    _, policy = harness.architecture(model_cfg).program(model_cfg, sd, ctx.device, fp32)
+    return policy, sd
 
-    cfg = TrainConfig(model=ModelConfig(dropout=0.0, num_commands=model_cfg["num_commands"],
-                                        stage_sizes=tuple(model_cfg["stage_sizes"]),
-                                        speed_skip=model_cfg["speed_skip"]))
-    model = create_train_state(cfg, seed, device=device).model.eval()
-    if fp32:
-        model.dtype = torch.float32
-    sd = seeded_state_dict(model_cfg, seed, device)
-    load_into(model, sd)
-    return model, sd
+
+def camera(sim: dict):
+    """The program's ``CameraSpec`` of the configuration's ``sim.camera``
+    (fields by name, the rest its defaults)."""
+    from cilrs_tpu_torch.render.camera import CameraSpec
+
+    return CameraSpec(**sim["camera"])
+
+
+def set_camera(owner, cam) -> None:
+    """Give the program's fleet or drive run the camera ``cam``: its ``cam``
+    field where its class has one. A class without one renders the default
+    camera, so it takes no other."""
+    from cilrs_tpu_torch.render.raster import CAMERA
+
+    if any(f.name == "cam" for f in dataclasses.fields(owner)):
+        owner.cam = cam
+    elif cam != CAMERA:
+        raise ValueError(f"the program's {type(owner).__name__} has no cam field and renders "
+                         f"{CAMERA}; the configuration asks for {cam}")
+
+
+def mfu_pct(ctx, units_per_s: float) -> float:
+    """The share of the card's bf16 peak of the policy's forward FLOPs
+    (``policies/<arch>.py:forward_flops`` at the configuration's widths and
+    camera) at ``units_per_s`` frames a second, in %."""
+    model_cfg = ctx.config["model"]
+    flops = harness.architecture(model_cfg).forward_flops(model_cfg, camera(ctx.config["sim"]))
+    return units_per_s * flops / counts.PEAK_BF16_FLOPS * 100
 
 
 def tick_ranges(owner) -> list:

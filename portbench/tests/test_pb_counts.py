@@ -1,35 +1,42 @@
-"""counts.py against torch's flop counter on the reference model, and the
-byte counts against their hand arithmetic."""
+"""Each architecture's FLOP counts (``policies/<arch>.py``) against torch's
+flop counter on its reference model, and the byte counts (``counts.py``)
+against their hand arithmetic."""
 
 from __future__ import annotations
 
-import torch
-from torch.utils.flop_counter import FlopCounterMode
+import os
 
-from portbench import counts
-from portbench.weights import reference_model
+import pytest
 
-MODEL = {"num_commands": 4, "stage_sizes": [3, 4, 6, 3], "stage_features": [64, 128, 256, 512],
-         "speed_skip": True}
+from conftest import counted_flops
+from portbench import counts, harness
+from portbench.reference.frozen.render.camera import CameraSpec
 
-
-def _flops(train: bool) -> int:
-    model = reference_model(MODEL, 0.0)
-    model.train(train)
-    img = torch.zeros(1, 88, 200, 3)
-    with FlopCounterMode(display=False) as fc:
-        controls, speed = model(img, torch.zeros(1), torch.zeros(1, dtype=torch.long))
-        if train:
-            (controls.sum() + speed.sum()).backward()
-    return fc.get_total_flops()
+CONFIGS = sorted(f[:-len(".json")] for f in os.listdir(os.path.join(harness.PB_DIR, "configs")))
+# The configuration's own camera, and one of another size.
+CAMERAS = [None, {"height": 66, "width": 150}]
 
 
-def test_forward_flops_match_the_flop_counter():
-    assert counts.cilrs_forward_flops() == _flops(False) == 2_798_183_168
+@pytest.mark.parametrize("camera", CAMERAS)
+@pytest.mark.parametrize("config", CONFIGS)
+def test_flops_match_the_flop_counter_at_the_tiny_size(config, camera):
+    cfg = harness.load_json("configs", config)
+    camera = camera or cfg["sim"]["camera"]
+    arch = harness.architecture(cfg["model"])
+    model_cfg = arch.tiny(cfg["model"])
+    cam = CameraSpec(**camera)
+    assert arch.forward_flops(model_cfg, cam) == counted_flops(arch, model_cfg, camera, False)
+    assert arch.train_flops(model_cfg, cam) == counted_flops(arch, model_cfg, camera, True)
 
 
-def test_train_flops_match_the_flop_counter():
-    assert counts.cilrs_train_flops() == _flops(True) == 8_311_758_848
+def test_cilrs_flops_match_the_flop_counter_at_the_configuration():
+    cfg = harness.load_json("configs", "cilrs34.benchtown")
+    arch, model_cfg, camera = harness.architecture(cfg["model"]), cfg["model"], cfg["sim"]["camera"]
+    cam = CameraSpec(**camera)
+    assert arch.forward_flops(model_cfg, cam) == counted_flops(arch, model_cfg, camera, False) \
+        == 2_798_183_168
+    assert arch.train_flops(model_cfg, cam) == counted_flops(arch, model_cfg, camera, True) \
+        == 8_311_758_848
 
 
 def test_byte_counts():

@@ -1,6 +1,7 @@
 """The benchmark's files: every configuration, cell, driver and per-layer
-metric that BENCHMARK.json names is found and loaded by name, and the names,
-units and keys keep to the benchmark's contract."""
+metric that BENCHMARK.json names, and every configuration's policy
+architecture, is found and loaded by name, and the names, units and keys keep
+to the benchmark's contract."""
 
 from __future__ import annotations
 
@@ -58,6 +59,22 @@ def test_config_found_by_name(config):
     assert harness.load_json("configs", config)["name"] == config
     assert all(NAME.match(k) for k in entry["reduced"])
     assert any(w["config"] == config for w in BENCH["workloads"])
+
+
+ARCH_FUNCTIONS = ("reference", "program", "reference_policy", "forward_flops", "train_flops",
+                  "tiny")
+CONFIG_FILES = sorted(f[:-len(".json")] for f in os.listdir(os.path.join(harness.PB_DIR,
+                                                                         "configs")))
+
+
+@pytest.mark.parametrize("config", CONFIG_FILES)
+def test_config_arch_found_by_name(config):
+    model_cfg = harness.load_json("configs", config)["model"]
+    arch = harness.architecture(model_cfg)
+    assert arch.__file__ == os.path.join(harness.PB_DIR, "policies", f"{model_cfg['arch']}.py")
+    assert NAME.match(model_cfg["arch"])
+    for name in ARCH_FUNCTIONS:
+        assert callable(getattr(arch, name)) and getattr(arch, name).__doc__, name
 
 
 @pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])

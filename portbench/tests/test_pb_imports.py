@@ -17,12 +17,18 @@ for w in bench["workloads"]:
     harness.load_module("drivers", harness.load_json("workloads", w["name"])["driver"])
 for m in bench["per_layer"]:
     harness.load_module("metrics", m["name"])
+for c in bench["configs"]:
+    harness.architecture(harness.load_json("configs", c["name"])["model"])
 import cilrs_tpu_torch.bench.env_steps, cilrs_tpu_torch.cli.drive, cilrs_tpu_torch.train.loop
 print(",".join(sorted({m.split(".")[0] for m in sys.modules})))
 """
 LOAD_THE_REFERENCE = """
-import sys
+import os, sys
 import portbench.reference.sim, portbench.reference.train, portbench.weights, portbench.counts
+from portbench import harness
+for f in os.listdir(os.path.join(harness.PB_DIR, "configs")):
+    model_cfg = harness.load_json("configs", f[:-len(".json")])["model"]
+    harness.architecture(model_cfg).reference(model_cfg)
 print(",".join(sorted(m for m in sys.modules if m.split(".")[0] == "cilrs_tpu_torch")))
 """
 

@@ -1,9 +1,12 @@
-"""The CILRS weights of a run, made on the device from the seed in one call
-of a ``torch.Generator`` on the card, and handed alike to the program and to
-the reference. Every convolution and linear kernel is normal with variance
-1/fan_in (lecun-normal, untruncated); BatchNorm scales are 1 + N(0, 0.05^2),
-their shifts, the linear biases and the speed skip N(0, 0.02^2); running
-statistics mean 0, variance 1."""
+"""The policy's weights of a run, made on the device from the seed in one
+call of a ``torch.Generator`` on the card, and handed alike to the program
+and to the reference. The tensors are those of the architecture's reference
+model (``policies/<arch>.py:reference``), in its state dict's order: every
+floating tensor of two or more dimensions (a convolution's or a linear
+layer's kernel, the CILRS's [4, 3] speed skip) is normal with variance
+1/fan_in (lecun-normal, untruncated); any other ``weight`` (a norm's scale)
+1 + N(0, 0.05^2); every other floating tensor (shifts, biases)
+N(0, 0.02^2); running statistics mean 0, variance 1."""
 
 from __future__ import annotations
 
@@ -11,22 +14,14 @@ import math
 
 import torch
 
-from portbench.reference.frozen.models.cilrs import CILRS
-
-
-def reference_model(model_cfg: dict, dropout: float) -> CILRS:
-    """The frozen CILRS in float32 (no autocast) at ``model_cfg``'s widths, on
-    the current default device."""
-    return CILRS(num_commands=model_cfg["num_commands"], dropout=dropout, dtype=torch.float32,
-                 stage_sizes=tuple(model_cfg["stage_sizes"]),
-                 stage_features=tuple(model_cfg["stage_features"]),
-                 speed_skip=model_cfg["speed_skip"])
+from portbench import harness
 
 
 def seeded_state_dict(model_cfg: dict, seed: int, device) -> dict[str, torch.Tensor]:
-    """A state dict for the CILRS of ``model_cfg`` (names as the program's)."""
+    """A state dict for the policy of ``model_cfg`` (names as its reference
+    model's, which are the program's)."""
     with torch.device("meta"):
-        shapes = reference_model(model_cfg, 0.0).state_dict()
+        shapes = harness.architecture(model_cfg).reference(model_cfg).state_dict()
     floats = [(k, v.shape) for k, v in shapes.items() if v.is_floating_point()
               and not k.endswith(("running_mean", "running_var"))]
     total = sum(math.prod(s) for _, s in floats)
@@ -39,7 +34,7 @@ def seeded_state_dict(model_cfg: dict, seed: int, device) -> dict[str, torch.Ten
         at += n
         if len(shape) >= 2:
             x = x * (1.0 / math.sqrt(math.prod(shape[1:])))
-        elif k.endswith("weight"):  # a BatchNorm scale
+        elif k.endswith("weight"):  # a norm's scale
             x = 1.0 + 0.05 * x
         else:
             x = 0.02 * x
