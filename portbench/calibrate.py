@@ -26,7 +26,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", required=True)
-    p.add_argument("--fault", default=None, choices=("unchanged", "half", "altered"))
+    p.add_argument("--fault", default=None, choices=("unchanged", "half", "altered", "forgetful"))
     p.add_argument("--no-control", action="store_true")
     p.add_argument("--fp32", action="store_true",
                    help="a witness: the program's policy in float32 (its autocast off)")

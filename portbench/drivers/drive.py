@@ -34,6 +34,7 @@ def prepare(ctx, fp32=False):
                                       sim["vehicles"], sim["walkers"], sim["weather"],
                                       seed=ctx.seed_for(1), autopilot=True, device=dev)
     run.policy, sd = simrun.program_policy(ctx, fp32)
+    simrun.keep_carry(run, ctx, run.policy)
     simrun.set_camera(run, simrun.camera(sim))
     start = (run.net, run.pool, run.state.world)
     for _ in range(ctx.traffic["warmup_chunks"]):

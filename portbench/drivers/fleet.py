@@ -49,6 +49,7 @@ def build(ctx, fp32=False):
                        wt=load_weather_table(device=dev), params=default_vehicle_params(dev),
                        policy=policy, state=make_driver_state(worlds), ticks=tr["ticks"],
                        generator=torch.Generator(device=dev).manual_seed(ctx.seed_for(3)))
+    simrun.keep_carry(fleet, ctx, policy)
     simrun.set_camera(fleet, simrun.camera(sim))
     return fleet, sd
 

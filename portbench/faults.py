@@ -1,33 +1,43 @@
 """Faults planted in the program underneath a run, for showing that the check
 catches them (``tests/test_pb_faults.py`` on the CPU, ``calibrate.py
 --fault`` on the card): a step that returns its state unchanged, half of the
-batch left out, an answer altered where it is produced. Each is a context
-manager that patches the program's module attribute its caller looks up."""
+batch left out, an answer altered where it is produced, a policy that
+forgets what it carries. Each is a context manager that patches the
+program's module attribute its caller looks up."""
 
 from __future__ import annotations
 
 import torch
 
+from portbench.simrun import carry_reader, cloned
 from portbench.trace import patched
 
 
 def sim_fault(name: str, owner=None):
     """A simulator fault: ``unchanged`` (the action returns its input state),
     ``half`` (the policy computes the first half of the envs, every tensor
-    argument cut along its first dimension, and zeros for the rest),
-    ``altered`` (the policy's steer, the first column of what it returns,
-    moved by 0.25). ``owner`` holds the policy (a fleet or a drive run),
-    whatever its architecture."""
+    argument, positional or keyword, cut along its first dimension, and
+    zeros for the rest), ``altered`` (the policy's steer, the first column of
+    what it returns, moved by 0.25), ``forgetful`` (the policy's carry
+    cloned at its first call and copied back in place before every later
+    call, so it never sees its history). ``owner`` holds the policy (a fleet
+    or a drive run), whatever its architecture; the policy's own keyword
+    arguments pass through."""
     from cilrs_tpu_torch.agent import driver
 
     if name == "unchanged":
         return patched(driver, "env_act", lambda f: lambda state, *a, **k: (state, f(state, *a, **k)[1]))
     if name == "half":
         def half(f):
-            def call(*args):
-                envs = next(a for a in args if isinstance(a, torch.Tensor)).shape[0]
+            def call(*args, **kwargs):
+                envs = next(a for a in (*args, *kwargs.values())
+                            if isinstance(a, torch.Tensor)).shape[0]
                 n = max(envs // 2, 1)
-                got = f(*(a[:n] if isinstance(a, torch.Tensor) else a for a in args))
+
+                def cut(a):
+                    return a[:n] if isinstance(a, torch.Tensor) else a
+
+                got = f(*map(cut, args), **{k: cut(v) for k, v in kwargs.items()})
                 out = got.new_zeros((envs,) + got.shape[1:])
                 out[:n] = got
                 return out
@@ -35,12 +45,32 @@ def sim_fault(name: str, owner=None):
         return patched(owner, "policy", half)
     if name == "altered":
         def altered(f):
-            def call(*args):
-                out = f(*args).clone()
+            def call(*args, **kwargs):
+                out = f(*args, **kwargs).clone()
                 out[:, 0] += 0.25
                 return out
             return call
         return patched(owner, "policy", altered)
+    if name == "forgetful":
+        carry = carry_reader(owner)
+        if carry is None:
+            raise ValueError("forgetful needs a policy that carries state (its architecture's "
+                             "carry hook)")
+
+        def forgetful(f):
+            first = None
+
+            def call(*args, **kwargs):
+                nonlocal first
+                now = carry()
+                if first is None:
+                    first = cloned(now)
+                else:
+                    for k, v in now.items():
+                        v.copy_(first[k])
+                return f(*args, **kwargs)
+            return call
+        return patched(owner, "policy", forgetful)
     raise ValueError(name)
 
 

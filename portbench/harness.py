@@ -48,7 +48,8 @@ def load_module(kind: str, name: str):
 def architecture(model_cfg: dict):
     """The module ``policies/<arch>.py`` of a configuration's ``model.arch``:
     its ``reference``, ``program``, ``reference_policy``, ``forward_flops``,
-    ``train_flops`` and ``tiny`` (``policies/cilrs.py`` says what each is)."""
+    ``train_flops`` and ``tiny``, and optionally ``carry``
+    (``policies/cilrs.py`` says what each is)."""
     arch = model_cfg.get("arch")
     if not isinstance(arch, str) or not os.path.isfile(os.path.join(PB_DIR, "policies",
                                                                     f"{arch}.py")):

@@ -7,7 +7,13 @@ builds it.
 
 An architecture module of the harness gives ``reference``, ``program``,
 ``reference_policy``, ``forward_flops``, ``train_flops`` and ``tiny``; a
-configuration names it by ``model.arch``.
+configuration names it by ``model.arch``. A policy that carries state from
+tick to tick (a controller's window of errors) also gives ``carry(policy)``:
+the carry of the policy ``program`` returned as it stands, a dict of tensors
+[E, ...] that the policy updates in place, or None. Its
+``reference_policy`` then takes ``carry=`` (the program's carry before the
+tick, which it leaves as it is) and returns (controls, the carry after the
+tick). The CILRS carries nothing and has no ``carry``.
 """
 
 from __future__ import annotations

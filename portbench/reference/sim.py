@@ -17,6 +17,12 @@ same pedestrian draws. The numbers:
    positions (m), headings (rad), speeds (m/s) and applied controls, where
    the reference acts with the program's controls, so that the bf16 policy's
    rounding does not enter it;
+ - ``carry_gap``, where the architecture's policy carries state from tick
+   to tick (its ``carry`` hook): widest |program carry after the tick -
+   reference carry after the tick| over every leaf, where the reference
+   policy starts from the program's carry before the tick (the sampled ticks
+   are not consecutive, so it cannot build the carry up itself); it holds
+   the program's update of the carry to the reference's;
  - ``start_mismatch``: elements of the map and the first world that differ
    from what the reference builds from the same seed, and routes of the pool
    whose length differs (the start, which the tick-by-tick check skips; the
@@ -31,6 +37,7 @@ weights and the inputs of every convolution and linear module.
 from __future__ import annotations
 
 import dataclasses
+import math
 import sys
 
 import numpy as np
@@ -121,7 +128,9 @@ def reference_policy(model_cfg: dict, sd: dict, device, quant: bool = False):
     """The configuration's architecture's reference policy
     (``policies/<arch>.py:reference_policy``) over its reference model in
     float32 and eval mode holding the run's weights (in fp8 for the
-    control): a function of (frame01, obs, state, pool) to controls [E, 3]."""
+    control): a function of (frame01, obs, state, pool) to controls [E, 3],
+    and where the architecture carries state, of (frame01, obs, state, pool,
+    carry=) to (controls, the carry after the tick)."""
     arch = harness.architecture(model_cfg)
     model = arch.reference(model_cfg).to(device)
     model.load_state_dict(sd)
@@ -129,9 +138,9 @@ def reference_policy(model_cfg: dict, sd: dict, device, quant: bool = False):
     if quant:
         quantize_(model)
 
-    def policy(frame01: torch.Tensor, obs: dict, state, pool) -> torch.Tensor:
+    def policy(frame01: torch.Tensor, obs: dict, state, pool, **carry):
         with torch.no_grad():
-            return arch.reference_policy(model, frame01, obs, state, pool)
+            return arch.reference_policy(model, frame01, obs, state, pool, **carry)
 
     return policy
 
@@ -208,16 +217,37 @@ def start_mismatch(ref: SimRef, net, pool, world) -> int:
             + mismatches(ref.world, to_frozen(world)))
 
 
+def carry_gap(got: dict | None, want: dict | None) -> float:
+    """Widest |got - want| over the leaves of two carries (dicts of tensors);
+    inf where their leaves or shapes differ or a gap is not finite."""
+    if got is None or want is None:
+        return 0.0 if got is want else math.inf
+    if got.keys() != want.keys():
+        return math.inf
+    gap = 0.0
+    for k, x in got.items():
+        y = want[k].to(x.device)
+        if x.shape != y.shape:
+            return math.inf
+        g = float((x.float() - y.float()).abs().max()) if x.numel() else 0.0
+        if not math.isfinite(g):
+            return math.inf
+        gap = max(gap, g)
+    return gap
+
+
 def follow(ref: SimRef, pool, ticks: list[dict], sample: list[int], loop_routes: bool,
            quant: bool = False) -> dict:
     """The tick-by-tick numbers over the ``sample`` of the recorded ``ticks``
-    (each {"state", "frame", "controls", "draws", "next"} of the program),
-    on the program's route ``pool`` [E, K, R, ...] (its state, which
+    (each {"state", "frame", "controls", "draws", "next"} of the program,
+    and its ``carry`` and ``carry_next`` where its policy carries state), on
+    the program's route ``pool`` [E, K, R, ...] (its state, which
     ``route_mismatch`` checks)."""
     classes = _frozen_classes()
     pool = to_frozen(pool, classes)
     frame_sum = frame_n = sq_sum = sq_n = 0.0
-    ctl_max = act_gap = 0.0
+    ctl_max = act_gap = c_gap = 0.0
+    carried = False
     for t in sample:
         rec = ticks[t]
         s = to_frozen(rec["state"], classes)
@@ -227,7 +257,12 @@ def follow(ref: SimRef, pool, ticks: list[dict], sample: list[int], loop_routes:
             frame = frame.to(torch.bfloat16).float()
         frame_sum += float((rec["frame"].float() - frame).abs().sum())
         frame_n += frame.numel()
-        ctl = ref.policy(frame, obs, s, pool)
+        if "carry" in rec:
+            carried = True
+            ctl, nxt_carry = ref.policy(frame, obs, s, pool, carry=rec["carry"])
+            c_gap = max(c_gap, carry_gap(rec["carry_next"], nxt_carry))
+        else:
+            ctl = ref.policy(frame, obs, s, pool)
         d = rec["controls"].float() - ctl
         sq_sum += float((d.double() ** 2).sum())
         sq_n += d.numel()
@@ -240,8 +275,11 @@ def follow(ref: SimRef, pool, ticks: list[dict], sample: list[int], loop_routes:
             if quant:
                 want = want.to(torch.bfloat16).float()
             act_gap = max(act_gap, float((got - want).abs().max()))
-    return {"frame_gap": frame_sum / max(frame_n, 1), "controls_rms": (sq_sum / max(sq_n, 1)) ** 0.5,
-            "controls_max": ctl_max, "act_gap": act_gap}
+    out = {"frame_gap": frame_sum / max(frame_n, 1), "controls_rms": (sq_sum / max(sq_n, 1)) ** 0.5,
+           "controls_max": ctl_max, "act_gap": act_gap}
+    if carried:
+        out["carry_gap"] = c_gap
+    return out
 
 
 def scores_mismatch(metrics, scores: dict) -> int:

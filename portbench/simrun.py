@@ -1,7 +1,8 @@
 """What the fleet and drive drivers share: the program's policy of the
-configuration's architecture with the run's weights, the configuration's
-camera, the tick's layer ranges, the hash calls of a tick, and the record of
-a chunk that the reference follows (``reference/sim.py``)."""
+configuration's architecture with the run's weights and the reader of what it
+carries from tick to tick, the configuration's camera, the tick's layer
+ranges, the hash calls of a tick, and the record of a chunk that the
+reference follows (``reference/sim.py``)."""
 
 from __future__ import annotations
 
@@ -14,6 +15,10 @@ import torch
 
 from portbench import counts, harness, trace
 from portbench.weights import seeded_state_dict
+
+# The attribute of a fleet or drive run that holds the reader of its
+# program policy's carry (``keep_carry``).
+CARRY_ATTR = "portbench_carry"
 
 # The sin-hash entry points as their callers look them up: (module path,
 # attribute, entry point).
@@ -31,6 +36,28 @@ def program_policy(ctx, fp32: bool = False):
     sd = seeded_state_dict(model_cfg, ctx.seed_for(2), ctx.device)
     _, policy = harness.architecture(model_cfg).program(model_cfg, sd, ctx.device, fp32)
     return policy, sd
+
+
+def keep_carry(owner, ctx, policy) -> None:
+    """Keep on ``owner`` (a fleet or drive run) the reader of the carry of
+    ``policy``, the object that ``policies/<arch>.py:program`` returned: its
+    architecture's ``carry(policy)``, a dict of tensors [E, ...] that the
+    policy updates in place, or None. It reads ``policy`` itself, never
+    whatever wraps ``owner.policy`` (the harness's ranges and taps, a fault).
+    An architecture without the hook carries nothing, and nothing is kept."""
+    hook = getattr(harness.architecture(ctx.config["model"]), "carry", None)
+    if hook is not None:
+        setattr(owner, CARRY_ATTR, lambda: hook(policy))
+
+
+def carry_reader(owner):
+    """The reader that ``keep_carry`` kept on ``owner``, or None."""
+    return getattr(owner, CARRY_ATTR, None)
+
+
+def cloned(carry: dict | None) -> dict | None:
+    """A copy of a carry, each tensor cloned."""
+    return None if carry is None else {k: v.clone() for k, v in carry.items()}
 
 
 def camera(sim: dict):
@@ -77,11 +104,16 @@ def tick_ranges(owner) -> list:
 def record_chunk(chunk, owner) -> tuple[list[dict], list[tuple[str, int]]]:
     """Run ``chunk()`` with taps on the tick's observation, policy and action;
     returns each tick's {"state", "frame", "controls", "draws", "next"} and
-    the sin-hash calls it made as (entry point, elements)."""
+    the sin-hash calls it made as (entry point, elements). Where ``owner``'s
+    policy carries state (``keep_carry``), each tick also holds its ``carry``
+    as it stood just before the policy's call and ``carry_next`` just after.
+    The taps wrap ``owner.policy`` as it is when the chunk starts, a fault
+    included, so the carry is read outside what a fault does to it."""
     from cilrs_tpu_torch.agent import driver
 
     ticks: list[dict] = []
     hashes: list[tuple[str, int]] = []
+    carry = carry_reader(owner)
 
     def observed(args, kwargs, obs):
         ticks.append({"state": args[0], "frame": obs["frame"]})
@@ -89,12 +121,17 @@ def record_chunk(chunk, owner) -> tuple[list[dict], list[tuple[str, int]]]:
     def acted(args, kwargs, out):
         ticks[-1].update(draws=args[2], next=out[0])
 
+    def deciding(args, kwargs):
+        ticks[-1]["carry"] = cloned(carry())
+
     def decided(args, kwargs, out):
         ticks[-1]["controls"] = out.clone()
+        if carry is not None:
+            ticks[-1]["carry_next"] = cloned(carry())
 
     taps = [trace.tapped(driver, "env_observe", after=observed),
             trace.tapped(driver, "env_act", after=acted),
-            trace.tapped(owner, "policy", after=decided)]
+            trace.tapped(owner, "policy", before=deciding if carry else None, after=decided)]
     for mod, attr, name in HASH_SITES:
         taps.append(trace.tapped(importlib.import_module(mod), attr,
                                  before=lambda a, k, name=name: hashes.append(
