@@ -53,6 +53,7 @@ from cilrs_tpu_torch.core.state import TensorTree, VehicleParams, WorldState, tr
 from cilrs_tpu_torch.evaluation.metrics import Metrics, init_metrics, update_metrics
 from cilrs_tpu_torch.maps.network import LIGHT_RED, RoadNetwork, light_state_ages, light_states
 from cilrs_tpu_torch.maps.routing import RoutePool, get_command, is_complete, localize, steer_hint
+from cilrs_tpu_torch.models.policy_graph import ModelPolicy
 from cilrs_tpu_torch.ops.image import normalize
 from cilrs_tpu_torch.ops.sinf import reverse_steer
 from cilrs_tpu_torch.render.camera import CameraSpec
@@ -485,6 +486,8 @@ def fleet_rollout(
     return state, {k: torch.stack([o[k] for o in ticks], dim=1) for k in ticks[0]} if ticks else {}
 
 
-def model_policy(model: torch.nn.Module):
-    """A CILRS model as a fleet policy: its controls, without the speed head."""
-    return lambda image, speed_norm, cmd: model(image, speed_norm, cmd)[0]
+def model_policy(model: torch.nn.Module) -> ModelPolicy:
+    """A CILRS model as a fleet policy: its controls, without the speed head,
+    a fresh tensor each call; on the card, in eval mode with grad off,
+    replayed from a CUDA graph of the forward (``models/policy_graph.py``)."""
+    return ModelPolicy(model)

@@ -115,6 +115,11 @@ def kernel_launch(name: str):
     return _NO_OPERATION
 
 
+def profiler_running() -> bool:
+    """Whether a ``torch.profiler`` runs now."""
+    return _autograd_profiler._is_profiler_enabled
+
+
 def span_summary() -> dict:
     """Per span name recorded outside a profiler: ``calls`` and ``total_s``
     over every call, and ``median_ms``, ``p95_ms`` (linear between ranks)

@@ -348,6 +348,103 @@ def test_bench_chunk_never_waits_for_the_card(cuda_device):
     assert (state.metrics.total_frames == 10).all()
 
 
+def _card_cilrs(dev, seed: int = 0):
+    """The full-width CILRS as the drive CLIs build it (bf16 autocast,
+    ``channels_last``), dropout 0, in eval mode."""
+    from cilrs_tpu_torch.train.state import create_train_state
+
+    cfg = tc.TrainConfig(model=tc.ModelConfig(dropout=0.0))
+    return create_train_state(cfg, seed, device=dev).model.eval()
+
+
+def _policy_inputs(dev, envs: int, seed: int):
+    """A normalized frame [E, 88, 200, 3], speeds [E] and commands [E]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(envs, 88, 200, 3, generator=g, device=dev),
+            torch.rand(envs, generator=g, device=dev),
+            torch.randint(0, 4, (envs,), generator=g, device=dev))
+
+
+@pytest.mark.parametrize("envs", [128, 1])
+def test_policy_graph_replays_the_eager_forward(cuda_device, envs):
+    """model_policy's CUDA graph of the full-width bf16 CILRS gives the eager
+    forward's controls bit for bit, on the inputs of its capture and on
+    later ones, a fresh tensor each call."""
+    from cilrs_tpu_torch.agent.driver import model_policy
+
+    model = _card_cilrs(cuda_device)
+    policy = model_policy(model)
+    got, want = [], []
+    with torch.inference_mode():
+        for seed in range(3):
+            x = _policy_inputs(cuda_device, envs, seed)
+            got.append(policy(*x))
+            want.append(model(*x)[0])
+    torch.cuda.synchronize()
+    assert len(policy.graphs) == 1
+    assert len({t.data_ptr() for t in got}) == 3
+    for g, w in zip(got, want):
+        assert g.shape == (envs, 3) and torch.equal(g, w), (g - w).abs().max().item()
+
+
+def test_policy_graph_captures_once_a_signature(cuda_device):
+    """Two fleet sizes give two captures; calls after them replay."""
+    from cilrs_tpu_torch.agent.driver import model_policy
+    from cilrs_tpu_torch.utils.profiling import span
+
+    policy = model_policy(_card_cilrs(cuda_device))
+    captures, replays = span("policy_capture").calls, span("policy_graph").calls
+    with torch.inference_mode():
+        for i, envs in enumerate((8, 4, 8, 4, 8)):
+            policy(*_policy_inputs(cuda_device, envs, i))
+    torch.cuda.synchronize()
+    assert len(policy.graphs) == 2 and span("policy_capture").calls == captures + 2
+    assert span("policy_graph").calls == replays + 5
+
+
+def test_policy_graph_sees_weights_loaded_in_place(cuda_device):
+    """After ``load_state_dict`` of other weights, a replay gives the eager
+    forward of the new weights: the graph recasts them to bf16 each replay."""
+    from cilrs_tpu_torch.agent.driver import model_policy
+
+    model = _card_cilrs(cuda_device, seed=0)
+    policy = model_policy(model)
+    x = _policy_inputs(cuda_device, 16, 0)
+    with torch.inference_mode():
+        before = policy(*x)
+    model.load_state_dict(_card_cilrs(cuda_device, seed=1).state_dict())
+    with torch.inference_mode():
+        got = policy(*x)
+        want = model(*x)[0]
+    torch.cuda.synchronize()
+    assert len(policy.graphs) == 1
+    assert torch.equal(got, want) and not torch.equal(got, before)
+
+
+def test_policy_graph_leaves_train_mode_eager(cuda_device):
+    """In train mode, or with grad on, the policy runs the eager forward and
+    replays no graph."""
+    from cilrs_tpu_torch.agent.driver import model_policy
+    from cilrs_tpu_torch.utils.profiling import span
+
+    model = _card_cilrs(cuda_device)
+    policy = model_policy(model)
+    x = _policy_inputs(cuda_device, 8, 0)
+    with torch.inference_mode():
+        policy(*x)
+    replays = span("policy_graph").calls
+    with torch.enable_grad():
+        got = policy(*x)
+    assert got.requires_grad
+    model.train()
+    with torch.no_grad():
+        got = policy(*x)
+        want = model(*x)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert len(policy.graphs) == 1 and span("policy_graph").calls == replays
+
+
 def test_fused_ring_and_sampler_on_card_match_cpu(cuda_device):
     """The fused loop's ring and sampler on the card against the CPU: the
     same chunks (one wraps the 600-slot ring of 88x200 frames) and the same
