@@ -3,42 +3,32 @@
 
 The source is shared with the JAX package; the port compiles its own copy
 with g++ at first use (not at import) into ``cilrs_tpu_torch/_build/``, named
-by a hash of the source. ``maps/routing.py`` falls back to a pure-Python
-Dijkstra when no C++ compiler is present.
+by a hash of the source (``ops/build.py``). ``maps/routing.py`` falls back to
+a pure-Python Dijkstra when no C++ compiler is present.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import subprocess
 
 import numpy as np
 
-from cilrs_tpu_torch.utils.profiling import span
+from cilrs_tpu_torch.ops.build import cached_library, compile_sources
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(os.path.dirname(_PKG_DIR), "native", "roadgraph.cpp")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 _MAX_PATH = 8192
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The compiled engine, built first if needed. Raises OSError or
-    subprocess.CalledProcessError when it cannot be built."""
-    with open(SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"libroadgraph_{digest}.so")
-    if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        with span("kernel_build"):
-            subprocess.run(["g++", *_FLAGS, SRC, "-o", tmp], check=True, capture_output=True)
-        os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+    """The compiled engine, built first if needed. Raises OSError (no g++)
+    or RuntimeError (g++ failed) when it cannot be built."""
+    path = cached_library(SRC, _FLAGS, "libroadgraph")
+    compile_sources(lambda: "g++", _FLAGS, {"roadgraph": (SRC, path)})
     lib = ctypes.CDLL(path)
     lib.rg_build.restype = ctypes.c_void_p
     lib.rg_build.argtypes = [

@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import dataclasses
 import heapq
-import subprocess
 
 import numpy as np
 import torch
@@ -98,7 +97,7 @@ class _HostGraph:
             from cilrs_tpu_torch.maps.native_graph import NativeGraph
 
             self._nat_graph = NativeGraph(self.xy, self.next, self.num_next)
-        except (OSError, subprocess.CalledProcessError):
+        except (OSError, RuntimeError):
             self._nat_graph = None  # no C++ compiler here: the Python search below
 
     def dijkstra(self, src: int, dst: int) -> list[int]:

@@ -21,8 +21,7 @@ import functools
 
 import torch
 
-from cilrs_tpu_torch.ops.build import load_library
-from cilrs_tpu_torch.utils.profiling import kernel_launch
+from cilrs_tpu_torch.ops.build import Kernel, bind_launchers, launch, load_library
 
 # The kernel's bulk copies move multiples of 16 bytes between 16-byte aligned
 # addresses, so every row must start 16-byte aligned.
@@ -126,15 +125,15 @@ LAUNCH_ARGTYPES = [
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
+_GATHER = Kernel("gather_rows")
+
+
 @functools.cache
 def _library():
-    lib = load_library("gather_rows")
-    lib.gather_rows_launch.argtypes = LAUNCH_ARGTYPES
-    lib.gather_rows_launch.restype = ctypes.c_int
+    lib = bind_launchers(load_library("gather_rows"), "gather_rows",
+                         {"gather_rows_launch": LAUNCH_ARGTYPES})
     lib.gather_rows_max_pages.argtypes = []
     lib.gather_rows_max_pages.restype = ctypes.c_int
-    lib.gather_rows_error_string.argtypes = [ctypes.c_int]
-    lib.gather_rows_error_string.restype = ctypes.c_char_p
     return lib, lib.gather_rows_max_pages()
 
 
@@ -168,19 +167,14 @@ def _gather_rows_cuda(pages, idx: torch.Tensor, page_rows: int) -> torch.Tensor:
     out = torch.empty((b, pages[0].shape[1]), dtype=pages[0].dtype, device=dev)
     chunk_bytes, chunks_per_row, stages, grid, smem_bytes = bulk_plan(
         row_bytes, b, _num_sms(dev.index))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with kernel_launch("gather_rows"):
-        status = lib.gather_rows_launch(
-            ptrs, rows, len(pages), page_rows, idx.data_ptr(), b, out.data_ptr(), row_bytes,
-            chunk_bytes, chunks_per_row, stages, grid, smem_bytes, dev.index, stream)
-    if status != 0:
-        raise RuntimeError("gather_rows kernel launch failed: "
-                           + lib.gather_rows_error_string(status).decode())
-    if b:
-        gather_rows_paged.launches += 1
+    # The launcher checks the plan at b = 0 too, and launches nothing then.
+    launch(_GATHER, lib, lib.gather_rows_launch, idx, ptrs, rows, len(pages), page_rows,
+           idx.data_ptr(), b, out.data_ptr(), row_bytes, chunk_bytes, chunks_per_row, stages, grid,
+           smem_bytes, counted=b > 0)
     return out
 
 
+@_GATHER
 def gather_rows_paged(pages, idx: torch.Tensor, page_rows: int) -> torch.Tensor:
     """Gather global rows ``idx`` [B] from a paged table -> [B, row_elems].
 
@@ -207,9 +201,6 @@ def gather_rows_paged(pages, idx: torch.Tensor, page_rows: int) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"gather_rows runs on CUDA or CPU tensors, not {dev.type}")
     return _gather_rows_cuda(pages, idx, page_rows)
-
-
-gather_rows_paged.launches = 0  # kernel launches, for showing a path ran on it
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

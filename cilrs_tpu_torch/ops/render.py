@@ -5,8 +5,8 @@ on the current stream, outputs allocated here.
 sin hashes of ``ops/sinf.py``; on CPU tensors it runs its torch composition,
 which is these kernels' plain version. Each entry point counts its launches
 (``fn.launches``) and launches in a profiler operation ``kernel::<name>``
-(``utils/profiling.py:kernel_launch``), so a profiler links its kernel to
-the ranges around it:
+(``ops/build.py:launch``), so a profiler links its kernel to the ranges
+around it:
  - ``render_prep``: the scene record of every env (camera, nearest segments,
    boxes, walkers, lights, weather) and the blur's speeds;
  - ``render_points``: the motion-stretched ground points that
@@ -31,8 +31,7 @@ import functools
 
 import torch
 
-from cilrs_tpu_torch.ops.build import load_library
-from cilrs_tpu_torch.utils.profiling import kernel_launch
+from cilrs_tpu_torch.ops.build import Kernel, bind_launchers, launch, load_library
 
 # PrepInputs, in the source's order: (name, dtype).
 PREP_INPUTS = (
@@ -98,11 +97,7 @@ def read_layout(lib: ctypes.CDLL) -> Layout:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the library's C interface on ``lib`` and reads its layout
     (``lib.layout``)."""
-    for name, argtypes in ARGTYPES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    lib.render_error_string.argtypes = [ctypes.c_int]
-    lib.render_error_string.restype = ctypes.c_char_p
+    bind_launchers(lib, "render", ARGTYPES)
     lib.render_dim_name.argtypes, lib.render_dim_name.restype = [ctypes.c_int], ctypes.c_char_p
     lib.layout = read_layout(lib)
     return lib
@@ -146,33 +141,6 @@ def record_floats(segments: int, boxes: int, walkers: int, lights: int) -> int:
     return -(-n // 4) * 4
 
 
-def _where(t: torch.Tensor) -> tuple[int, int | None]:
-    """(device index, stream) of a launch on ``t``'s device: the current
-    stream on the card; -1 and none for the host build's CPU tensors."""
-    if t.device.type == "cuda":
-        return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
-    return -1, None
-
-
-def _counted(fn):
-    """``fn`` with a count of its launches (``.launches``) kept on the entry
-    point itself, so that a caller wrapping the module's name (a profiler
-    range) still counts."""
-    @functools.wraps(fn)
-    def entry(*args, **kwargs):
-        out = fn(*args, **kwargs)
-        entry.launches += 1
-        return out
-    entry.launches = 0
-    return entry
-
-
-def _check(name: str, lib, status: int):
-    if status != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           + lib.render_error_string(status).decode())
-
-
 def _float_input(name: str, t: torch.Tensor, shape: tuple, device=None) -> torch.Tensor:
     if t.dtype != torch.float32 or tuple(t.shape) != shape or (device and t.device != device):
         raise ValueError(f"{name} must be float32 of shape {shape} on {device or t.device}, got "
@@ -187,7 +155,11 @@ def _dims_array(dims: dict) -> ctypes.Array:
     return (ctypes.c_int * len(names))(*(int(dims[k]) for k in names))
 
 
-@_counted
+_PREP, _POINTS, _SHADE, _BLUR = map(
+    Kernel, ("render_prep", "render_points", "render_shade", "render_blur"))
+
+
+@_PREP
 def render_prep(inputs: dict, dims: dict, consts: ctypes.Array) -> tuple:
     """The scene records [E, record] and the blur's speeds in km/h [E] of the
     world and network tensors ``inputs`` (``PREP_INPUTS``, on one device)."""
@@ -210,15 +182,12 @@ def render_prep(inputs: dict, dims: dict, consts: ctypes.Array) -> tuple:
     records = torch.empty((E, dims["record"]), dtype=torch.float32, device=ref.device)
     speed_kmh = torch.empty(E, dtype=torch.float32, device=ref.device)
     ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
-    dev, stream = _where(ref)
-    with kernel_launch("render_prep"):
-        status = lib.render_prep_launch(ptrs, _dims_array(dims), consts, records.data_ptr(),
-                                        speed_kmh.data_ptr(), dev, stream)
-    _check("render_prep", lib, status)
+    launch(_PREP, lib, lib.render_prep_launch, ref, ptrs, _dims_array(dims), consts,
+           records.data_ptr(), speed_kmh.data_ptr())
     return records, speed_kmh
 
 
-@_counted
+@_POINTS
 def render_points(records: torch.Tensor, dims: dict, consts: ctypes.Array) -> tuple:
     """The motion-stretched ground points [E, N, 2] and the rain columns,
     [H, W] and [E, H, W] with each env's time step added."""
@@ -228,16 +197,12 @@ def render_points(records: torch.Tensor, dims: dict, consts: ctypes.Array) -> tu
     opts = dict(dtype=torch.float32, device=records.device)
     sxy = torch.empty((E, H * W, 2), **opts)
     cols, cols_t = torch.empty((H, W), **opts), torch.empty((E, H, W), **opts)
-    dev, stream = _where(records)
-    with kernel_launch("render_points"):
-        status = lib.render_points_launch(records.data_ptr(), _dims_array(dims), consts,
-                                          sxy.data_ptr(), cols.data_ptr(), cols_t.data_ptr(),
-                                          dev, stream)
-    _check("render_points", lib, status)
+    launch(_POINTS, lib, lib.render_points_launch, records, records.data_ptr(),
+           _dims_array(dims), consts, sxy.data_ptr(), cols.data_ptr(), cols_t.data_ptr())
     return sxy, cols, cols_t
 
 
-@_counted
+@_SHADE
 def render_shade(records: torch.Tensor, tex: torch.Tensor, phase: torch.Tensor,
                  streak_hash: torch.Tensor, dims: dict, consts: ctypes.Array) -> torch.Tensor:
     """The frame before the blur [E, H, W, 3] from the records, the ground
@@ -249,16 +214,12 @@ def render_shade(records: torch.Tensor, tex: torch.Tensor, phase: torch.Tensor,
     phase = _float_input("phase", phase, (H, W), records.device)
     streak_hash = _float_input("streak_hash", streak_hash, (E, H, W), records.device)
     img = torch.empty((E, H, W, 3), dtype=torch.float32, device=records.device)
-    dev, stream = _where(records)
-    with kernel_launch("render_shade"):
-        status = lib.render_shade_launch(records.data_ptr(), tex.data_ptr(), phase.data_ptr(),
-                                         streak_hash.data_ptr(), _dims_array(dims), consts,
-                                         img.data_ptr(), dev, stream)
-    _check("render_shade", lib, status)
+    launch(_SHADE, lib, lib.render_shade_launch, records, records.data_ptr(), tex.data_ptr(),
+           phase.data_ptr(), streak_hash.data_ptr(), _dims_array(dims), consts, img.data_ptr())
     return img
 
 
-@_counted
+@_BLUR
 def render_blur(img: torch.Tensor, speed_kmh: torch.Tensor, taps: torch.Tensor,
                 consts: ctypes.Array) -> torch.Tensor:
     """``motion_blur`` of ``img`` [E, H, W, 3] at ``speed_kmh`` [E], with the
@@ -269,11 +230,8 @@ def render_blur(img: torch.Tensor, speed_kmh: torch.Tensor, taps: torch.Tensor,
     speed_kmh = _float_input("speed_kmh", speed_kmh, (E,), img.device)
     taps = _float_input("taps", taps, (2, 3 * (H + W)), img.device)
     out = torch.empty_like(img)
-    dev, stream = _where(img)
-    with kernel_launch("render_blur"):
-        status = lib.render_blur_launch(img.data_ptr(), speed_kmh.data_ptr(), taps.data_ptr(),
-                                        E, H, W, consts, out.data_ptr(), dev, stream)
-    _check("render_blur", lib, status)
+    launch(_BLUR, lib, lib.render_blur_launch, img, img.data_ptr(), speed_kmh.data_ptr(),
+           taps.data_ptr(), E, H, W, consts, out.data_ptr())
     return out
 
 

@@ -52,8 +52,7 @@ import functools
 import numpy as np
 import torch
 
-from cilrs_tpu_torch.ops.build import load_library
-from cilrs_tpu_torch.utils.profiling import kernel_launch
+from cilrs_tpu_torch.ops.build import Kernel, bind_launchers, launch, load_library
 
 # Table 0 of glibc's __sincosf_table. Table 1 (used when the quadrant has bit
 # 1 set) negates C0-C4 and keeps the rest.
@@ -211,22 +210,14 @@ MODE_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlo
 MODE_HASH01, MODE_GRAIN, MODE_STEER = 0, 1, 2  # the kernel's Mode
 
 
+_HASH_SINF, _HASH01, _GRAIN, _STEER = map(
+    Kernel, ("hash_sinf", "hash01", "grain_texture", "reverse_steer"))
+
+
 @functools.cache
 def _library():
-    lib = load_library("hash_sinf")
-    lib.hash_sinf_launch.argtypes = LAUNCH_ARGTYPES
-    lib.hash_sinf_launch.restype = ctypes.c_int
-    lib.hash_mode_launch.argtypes = MODE_ARGTYPES
-    lib.hash_mode_launch.restype = ctypes.c_int
-    lib.hash_sinf_error_string.argtypes = [ctypes.c_int]
-    lib.hash_sinf_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check_status(lib, status: int, name: str):
-    if status != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           + lib.hash_sinf_error_string(status).decode())
+    return bind_launchers(load_library("hash_sinf"), "hash_sinf",
+                          {"hash_sinf_launch": LAUNCH_ARGTYPES, "hash_mode_launch": MODE_ARGTYPES})
 
 
 def flat_stride(t: torch.Tensor) -> int | None:
@@ -265,12 +256,8 @@ def _hash_sinf_cuda(x: torch.Tensor, a: float, y) -> torch.Tensor:
         y_ptr, mode = y.data_ptr(), Y_TENSOR
     elif y is not None:
         b, mode = float(y), Y_SCALAR
-    dev = x.device
-    with kernel_launch("hash_sinf"):
-        status = lib.hash_sinf_launch(x.data_ptr(), sx, y_ptr, sy, mode, a, b, out.data_ptr(), n,
-                                      dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _check_status(lib, status, "hash_sinf")
-    hash_sinf.launches += 1
+    launch(_HASH_SINF, lib, lib.hash_sinf_launch, x, x.data_ptr(), sx, y_ptr, sy, mode, a, b,
+           out.data_ptr(), n)
     return out
 
 
@@ -281,6 +268,7 @@ def _check_input(name: str, t: torch.Tensor):
         raise ValueError(f"{name} runs on CUDA or CPU tensors, not {t.device.type}")
 
 
+@_HASH_SINF
 def hash_sinf(x: torch.Tensor, a: float, y: torch.Tensor | float | None = None) -> torch.Tensor:
     """glibc's ``sinf(fl32(x * a + y))`` of float32 ``x`` (any shape) and
     ``y`` (a float, None, or a float32 tensor of ``x``'s shape on its device)
@@ -298,11 +286,11 @@ def hash_sinf(x: torch.Tensor, a: float, y: torch.Tensor | float | None = None) 
     return _hash_sinf_cuda(x, a, y)
 
 
-def _mode_cuda(fn, mode: int, inp: torch.Tensor, shape, consts) -> torch.Tensor:
+def _mode_cuda(kernel: Kernel, mode: int, inp: torch.Tensor, shape, consts) -> torch.Tensor:
     """One launch of the kernel's ``mode`` over the contiguous ``inp`` into a
-    new float32 tensor of ``shape``, counted on ``fn``."""
+    new float32 tensor of ``shape``."""
     if not inp.is_contiguous():
-        raise ValueError(f"{fn.__name__} takes a contiguous tensor on the card, got strides "
+        raise ValueError(f"{kernel.name} takes a contiguous tensor on the card, got strides "
                          f"{inp.stride()} for shape {tuple(inp.shape)}")
     lib = _library()
     out = torch.empty(shape, dtype=torch.float32, device=inp.device)
@@ -310,15 +298,11 @@ def _mode_cuda(fn, mode: int, inp: torch.Tensor, shape, consts) -> torch.Tensor:
     if n == 0:
         return out
     k = (ctypes.c_float * 8)(*consts, *([0.0] * (8 - len(consts))))
-    dev = inp.device
-    with kernel_launch(fn.__name__):
-        status = lib.hash_mode_launch(mode, inp.data_ptr(), out.data_ptr(), n, k, dev.index,
-                                      torch.cuda.current_stream(dev).cuda_stream)
-    _check_status(lib, status, fn.__name__)
-    fn.launches += 1
+    launch(kernel, lib, lib.hash_mode_launch, inp, mode, inp.data_ptr(), out.data_ptr(), n, k)
     return out
 
 
+@_HASH01
 def hash01(x: torch.Tensor, a: float, b: float, scale: float) -> torch.Tensor:
     """``h = fl32(sinf(fl32(x * a + b)) * scale)``, ``h - floor(h)``: a hash of
     float32 ``x`` (any shape) in [0, 1), bit for bit the JAX package's
@@ -327,9 +311,10 @@ def hash01(x: torch.Tensor, a: float, b: float, scale: float) -> torch.Tensor:
     _check_input("hash01", x)
     if x.device.type == "cpu":
         return hash01_plain(x, a, b, scale)
-    return _mode_cuda(hash01, MODE_HASH01, x, x.shape, (a, b, scale))
+    return _mode_cuda(_HASH01, MODE_HASH01, x, x.shape, (a, b, scale))
 
 
+@_GRAIN
 def grain_texture(sxy: torch.Tensor) -> torch.Tensor:
     """The ground grain of world points ``sxy`` [..., 2] (float32) -> [...]:
     ``0.6 * grain_hash(sxy, 1.7) + 0.4 * grain_hash(sxy, 0.45) - 0.5``, the
@@ -341,9 +326,10 @@ def grain_texture(sxy: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"grain_texture takes points [..., 2], got shape {tuple(sxy.shape)}")
     if sxy.device.type == "cpu":
         return grain_texture_plain(sxy)
-    return _mode_cuda(grain_texture, MODE_GRAIN, sxy, sxy.shape[:-1], _GRAIN_CONSTS)
+    return _mode_cuda(_GRAIN, MODE_GRAIN, sxy, sxy.shape[:-1], _GRAIN_CONSTS)
 
 
+@_STEER
 def reverse_steer(rec_start: torch.Tensor) -> torch.Tensor:
     """The recovery's pseudo-random reverse steer in [-0.3, 0.3), stable per
     episode: a sin hash of its start time (float32, any shape), bit for bit
@@ -353,13 +339,11 @@ def reverse_steer(rec_start: torch.Tensor) -> torch.Tensor:
     _check_input("reverse_steer", rec_start)
     if rec_start.device.type == "cpu":
         return reverse_steer_plain(rec_start)
-    return _mode_cuda(reverse_steer, MODE_STEER, rec_start, rec_start.shape,
+    return _mode_cuda(_STEER, MODE_STEER, rec_start, rec_start.shape,
                       (STEER_A, STEER_SCALE, STEER_OFFSET, STEER_GAIN))
 
 
 # The grain mode's constants, in the kernel's order.
 _GRAIN_CONSTS = (HASH_A, HASH_C, HASH_SCALE, *map(cell_reciprocal, GRAIN_CELLS), *GRAIN_WEIGHTS,
                  GRAIN_BIAS)
-# Kernel launches, for showing a path ran on them.
-hash_sinf.launches = hash01.launches = grain_texture.launches = reverse_steer.launches = 0
 SIN_HASHES = (hash_sinf, hash01, grain_texture, reverse_steer)

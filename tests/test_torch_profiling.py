@@ -12,12 +12,15 @@
    each of the tick's spans, each its parent's child, and its outputs are
    the same bit for bit with a profiler running and without;
  - the set-up's spans: the town's build, the route search, the model's init
-   and a kernel build, which records a call only where a compile ran;
+   and a kernel build, which records a call only where a compile ran (nvcc's
+   batch and the road graph's g++);
  - ``reset_spans()`` empties the store.
 """
 
+import hashlib
 import json
 import os
+import re
 import stat
 
 import numpy as np
@@ -270,3 +273,30 @@ def test_kernel_build_span_counts_the_compiles_run(tmp_path, monkeypatch):
     os.remove(build.library_path("hash_sinf"))
     assert set(build.build(["gather_rows", "hash_sinf"])) == {"hash_sinf"}
     assert span_summary()["kernel_build"]["calls"] == 2
+
+
+def test_road_graph_compile_is_one_kernel_build(tmp_path, monkeypatch):
+    """The road graph's g++ build goes through ``ops/build.py``: its library
+    keeps its name (a digest of the source and the flags) and its compile is
+    one ``kernel_build`` call, none once built."""
+    from cilrs_tpu_torch.maps import native_graph
+    from cilrs_tpu_torch.ops import build
+
+    fake = tmp_path / "bin" / "g++"  # writes the file after -o
+    fake.parent.mkdir()
+    fake.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\necho built > "$2"\n')
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("PATH", f"{fake.parent}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "_build"))
+    with open(native_graph.SRC, "rb") as f:
+        digest = hashlib.sha256(f.read() + b"-O2 -std=c++17 -shared -fPIC").hexdigest()[:16]
+    want = tmp_path / "_build" / f"libroadgraph_{digest}.so"
+    native_graph.library.cache_clear()
+    reset_spans()
+    with pytest.raises(OSError, match=re.escape(str(want))):  # the fake's file loads as nothing
+        native_graph.library()
+    assert want.read_text() == "built\n"
+    assert span_summary()["kernel_build"]["calls"] == 1
+    with pytest.raises(OSError, match=re.escape(str(want))):
+        native_graph.library()
+    assert span_summary()["kernel_build"]["calls"] == 1

@@ -14,7 +14,9 @@ Town01's chase view moves by 0.16. The card's own tests
 (``tests/test_torch_render_kernel.py``) hold the kernels to the
 composition bit for bit.
 
-Also: ``render_frame`` on CPU tensors launches nothing.
+Also: ``render_frame`` on CPU tensors launches nothing, and each entry point
+launches through ``ops/build.py:launch``: counted once a launch, in a
+``kernel::<name>`` profiler operation, and not at all when refused.
 """
 
 import ctypes
@@ -27,6 +29,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
+
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from torch_render_scenes import bench_town, fleet_world, staged_world  # noqa: E402
 
@@ -138,6 +142,51 @@ def test_host_blur_matches_the_plain_blur(host_kernels):
     assert kernels.render_blur.launches == before + 1
     np.testing.assert_allclose(got.numpy(), raster.motion_blur_plain(x, speed).numpy(),
                                atol=1e-6, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def kernel_args(host_library):
+    """Each render kernel's arguments in one render of the mini town on the
+    host build (the blur's from the shade's frame and the prep's speeds)."""
+    calls = {}
+
+    def capture(fn):
+        def call(*args):
+            calls[fn.__name__] = (args, fn(*args))
+            return calls[fn.__name__][1]
+        return call
+
+    net = tt.make_mini_town()
+    world = staged_world(net)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(kernels, "_library", lambda: host_library)
+        for fn in kernels.RENDER_KERNELS:
+            mp.setattr(kernels, fn.__name__, capture(fn))
+        raster.render_frame_kernels(net, world, tn.light_states(net, world.time_s))
+    (_, _, consts), (_, speed_kmh) = calls["render_prep"]
+    img = calls["render_shade"][1]
+    args = {name: a for name, (a, _) in calls.items()}
+    args["render_blur"] = (img, speed_kmh, raster.zoom_taps(*img.shape[1:3], img.device), consts)
+    return args
+
+
+@pytest.mark.parametrize("name", [fn.__name__ for fn in kernels.RENDER_KERNELS])
+def test_a_launch_counts_once_in_its_profiler_operation(host_kernels, kernel_args, name):
+    """A call refused before the launch counts nothing; one that launches
+    counts one, inside its ``kernel::<name>`` operation under a profiler."""
+    fn, args = getattr(kernels, name), kernel_args[name]
+    if name == "render_prep":
+        bad = (dict(args[0], veh_alive=args[0]["veh_alive"].float()), *args[1:])
+    else:
+        bad = (args[0].double(), *args[1:])
+    before = fn.launches
+    with pytest.raises(ValueError, match="must be"):
+        fn(*bad)
+    assert fn.launches == before
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn(*args)
+    assert fn.launches == before + 1
+    assert [e.name for e in prof.events()].count(f"kernel::{name}") == 1
 
 
 def test_render_prep_refuses_inputs_it_cannot_read(host_kernels):
