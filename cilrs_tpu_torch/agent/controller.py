@@ -14,21 +14,26 @@ each env's row of the ``WeatherTable``.
 
 The collect mode carries ``CtrlState`` too (the teacher sets
 ``waiting_for_red``; a teleport resets it); the cascade drives the drive mode.
+
+``safety_cascade`` is the cascade's body; ``safety_controller``, the entry
+point, runs it eagerly or, on the card, replays a CUDA graph of it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
 from cilrs_tpu_torch.config import WeatherTable
 from cilrs_tpu_torch.core.geometry import heading_vec
-from cilrs_tpu_torch.core.state import TensorTree, WorldState
+from cilrs_tpu_torch.core.state import TensorTree, WorldState, tree_leaves, tree_unflatten
 from cilrs_tpu_torch.maps.network import LIGHT_RED, LIGHT_YELLOW, RoadNetwork
 from cilrs_tpu_torch.maps.queries import nearest_lane_waypoint
 from cilrs_tpu_torch.ops.filters import SmoothingState, init_smoothing, smooth_controls
-from cilrs_tpu_torch.utils.profiling import span
+from cilrs_tpu_torch.utils.cuda_graph import Graph, capture, replay
+from cilrs_tpu_torch.utils.profiling import profiler_running, span
 
 # Status codes (HUD/report strings in evaluation.hud.STATUS_NAMES).
 ST_OK, ST_RED, ST_YELLOW, ST_BRAKE, ST_OVERTAKE_L, ST_OVERTAKE_R, ST_REVERSE, \
@@ -128,8 +133,7 @@ def _select(conds, values, default):
     return out
 
 
-@span("safety")
-def safety_controller(
+def safety_cascade(
     net: RoadNetwork,
     world: WorldState,
     ctrl: CtrlState,
@@ -144,8 +148,9 @@ def safety_controller(
     tl_state: torch.Tensor,  # [E] int traffic-light state
     red_ahead: torch.Tensor,  # [E] bool — queued behind a red
 ):
-    """Returns (control [E, 3] (steer, throttle, brake), reverse [E] bool,
-    status [E] int64, new CtrlState, events dict of [E] bools).
+    """The cascade's body, always eager (``safety_controller`` is the entry
+    point). Returns (control [E, 3] (steer, throttle, brake), reverse [E]
+    bool, status [E] int64, new CtrlState, events dict of [E] bools).
 
     red_ahead (perception.red_light_ahead): the lane's next light within 40 m
     is red even outside the 15 m obey gate, so the queue ahead is light-bound.
@@ -350,3 +355,150 @@ def safety_controller(
         "teleport_request": teleport_request,
     }
     return control, reverse, status, new_ctrl, events
+
+
+# ---------------------------------------------------------------------------
+# The entry point: the cascade replayed from a CUDA graph on the card
+# ---------------------------------------------------------------------------
+
+# The world's fields the cascade reads; a graph copies in these alone and
+# captures on a world whose other fields are None, so a read of one fails at
+# the capture instead of baking in a stale tensor.
+_WORLD_READS = ("veh_pos", "veh_alive", "ped_pos", "ped_alive", "time_s", "weather_idx")
+_WORLD_UNREAD = {f.name: None for f in dataclasses.fields(WorldState)
+                 if f.name not in _WORLD_READS}
+
+_GRAPH = span("safety_graph")
+_CAPTURE = span("safety_capture")
+
+
+class _Captured(NamedTuple):
+    """A capture of the cascade, with the network and weather table whose
+    tensors it reads by address (held so that their memory is not reused
+    while the graph lives). ``graph.out`` is (flat, layout, event names):
+    the outputs packed as bytes in one buffer, and where each lies in it."""
+
+    net: RoadNetwork
+    wt: WeatherTable
+    graph: Graph
+
+
+# The captures, by ``graph_key``, for every caller in the process.
+GRAPHS: dict[tuple, _Captured] = {}
+
+
+def graph_inputs(world: WorldState, ctrl: CtrlState, *obs: torch.Tensor) -> tuple:
+    """The tensors a graph of the cascade copies in: the world's fields it
+    reads, ``ctrl``'s leaves, then the controls and observations (``obs``,
+    ``safety_controller``'s arguments from ``nn_steer`` on)."""
+    return (*(getattr(world, f) for f in _WORLD_READS), *tree_leaves(ctrl), *obs)
+
+
+def graphable(inputs) -> bool:
+    """Whether a call may replay a graph: every input on the card, none
+    requiring grad."""
+    return all(x.is_cuda and not x.requires_grad for x in inputs)
+
+
+def graph_key(net: RoadNetwork, wt: WeatherTable, inputs: tuple) -> tuple:
+    """What a captured graph holds fixed: the device, every input's shape
+    and dtype, and the network and weather table whose tensors it reads."""
+    return (inputs[0].device, tuple((x.shape, x.dtype) for x in inputs), id(net), id(wt))
+
+
+def _pack(leaves: list):
+    """The tensors ``leaves`` as bytes in one buffer, grouped by dtype, the
+    widest elements first (so each group lies aligned to its element), and
+    the layout: per group (dtype, start byte, stop byte, the leaves' indices,
+    their sizes, their shapes where not 1-D)."""
+    groups: dict = {}
+    for i, x in enumerate(leaves):
+        groups.setdefault(x.dtype, []).append(i)
+    layout, parts, at = [], [], 0
+    for dtype, idx in sorted(groups.items(), key=lambda g: -g[0].itemsize):
+        sizes = [leaves[i].numel() for i in idx]
+        shapes = [None if leaves[i].dim() == 1 else leaves[i].shape for i in idx]
+        layout.append((dtype, at, at + sum(sizes) * dtype.itemsize, idx, sizes, shapes))
+        parts += [leaves[i].reshape(-1).view(torch.uint8) for i in idx]
+        at = layout[-1][2]
+    return torch.cat(parts), layout
+
+
+def _packed_cascade(net: RoadNetwork, wt: WeatherTable, ctrl: CtrlState):
+    """The cascade as a function of ``graph_inputs`` (``ctrl`` gives their
+    structure) returning its outputs packed by ``_pack``."""
+    n_world, n_ctrl = len(_WORLD_READS), len(tree_leaves(ctrl))
+
+    def run(*inputs):
+        world = WorldState(**_WORLD_UNREAD, **dict(zip(_WORLD_READS, inputs[:n_world])))
+        c = tree_unflatten(ctrl, inputs[n_world:n_world + n_ctrl])
+        control, reverse, status, new_ctrl, events = safety_cascade(
+            net, world, c, wt, *inputs[n_world + n_ctrl:])
+        flat, layout = _pack([control, reverse, status, *tree_leaves(new_ctrl),
+                              *events.values()])
+        return flat, layout, tuple(events)
+
+    return run
+
+
+def _unpacked(ctrl: CtrlState, flat: torch.Tensor, layout: list, names: tuple):
+    """The cascade's outputs as views of ``flat``, the buffer that
+    ``_packed_cascade`` packs them in (``ctrl`` gives the new CtrlState's
+    structure, ``names`` the events')."""
+    out = [None] * sum(len(group[3]) for group in layout)
+    for dtype, a, b, idx, sizes, shapes in layout:
+        for i, x, shape in zip(idx, flat[a:b].view(dtype).split(sizes), shapes):
+            out[i] = x if shape is None else x.view(shape)
+    n_ctrl = len(out) - 3 - len(names)
+    return (out[0], out[1], out[2], tree_unflatten(ctrl, out[3:3 + n_ctrl]),
+            dict(zip(names, out[3 + n_ctrl:])))
+
+
+@span("safety")
+def safety_controller(
+    net: RoadNetwork,
+    world: WorldState,
+    ctrl: CtrlState,
+    wt: WeatherTable,
+    nn_steer: torch.Tensor,  # [E] raw model outputs
+    nn_gas: torch.Tensor,
+    nn_brake: torch.Tensor,
+    speed_kmh: torch.Tensor,
+    cmd: torch.Tensor,  # [E] int high-level command
+    hint: torch.Tensor,  # [E] steer hint from the route
+    obs_dist: torch.Tensor,  # [E] m (999 = none)
+    tl_state: torch.Tensor,  # [E] int traffic-light state
+    red_ahead: torch.Tensor,  # [E] bool — queued behind a red
+):
+    """``safety_cascade``'s outputs, fresh tensors each call, replayed from a
+    CUDA graph of it where ``graphable`` holds.
+
+    The cascade is a few hundred small operations, which at a fleet's batch
+    take the host longer to issue than the card to run. So on the card, with
+    no input requiring grad, it is captured once for each ``graph_key`` (in
+    ``GRAPHS``) and replayed on every later call: the inputs are copied into
+    the graph's static buffers, the graph replays the same kernels in the
+    same order, and its outputs, packed in one buffer inside the graph, are
+    cloned out at once and viewed. Every other call runs the cascade
+    eagerly: on the CPU, with an input requiring grad, and for a new
+    signature while a ``torch.profiler`` runs (nothing is captured under
+    one). A replay reads the network's and the weather table's tensors where
+    they were at capture, so their updates in place carry over to it.
+
+    Spans: ``safety_graph`` around each replay, with the copies in and the
+    clone out; ``safety_capture`` around each capture, its warm-up included.
+    """
+    obs = (nn_steer, nn_gas, nn_brake, speed_kmh, cmd, hint, obs_dist, tl_state, red_ahead)
+    inputs = graph_inputs(world, ctrl, *obs)
+    if not graphable(inputs):
+        return safety_cascade(net, world, ctrl, wt, *obs)
+    key = graph_key(net, wt, inputs)
+    g = GRAPHS.get(key)
+    if g is None:
+        if profiler_running():
+            return safety_cascade(net, world, ctrl, wt, *obs)
+        with _CAPTURE:
+            g = GRAPHS[key] = _Captured(net, wt, capture(_packed_cascade(net, wt, ctrl), *inputs))
+    with _GRAPH:
+        flat, layout, names = replay(g.graph, inputs, "cilrs_safety_graph")
+        return _unpacked(ctrl, flat.clone(), layout, names)

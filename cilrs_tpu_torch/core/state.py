@@ -33,6 +33,20 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a tree, in ``tree_map``'s order."""
+    if isinstance(tree, TensorTree):
+        return [x for f in dataclasses.fields(tree) for x in tree_leaves(getattr(tree, f.name))]
+    return [tree]
+
+
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s structure holding ``leaves`` (``tree_leaves``'s
+    order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 def tree_where(cond: torch.Tensor, a, b):
     """Per env: leaves of a where cond [E] holds, else of b."""
     def pick(x, y):

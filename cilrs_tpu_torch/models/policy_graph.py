@@ -6,11 +6,12 @@ BatchNorms and elementwise work, then the heads), and at a fleet's batch the
 host takes longer to issue them than the card takes to run them. So on the
 card, in eval mode and with grad off, ``ModelPolicy`` captures the forward
 once for each input signature (``graph_key``) as a ``torch.cuda.CUDAGraph``
-and replays it on every later call: the inputs are copied into the graph's
-static buffers, the graph replays, and the controls are cloned out, so each
-call returns a fresh tensor. Every other call runs the forward eagerly, as
-the model does: on the CPU, in train mode, with grad on, and for a new
-signature while a ``torch.profiler`` runs (nothing is captured under one).
+(``utils/cuda_graph.py``) and replays it on every later call: the inputs
+are copied into the graph's static buffers, the graph replays, and the
+controls are cloned out, so each call returns a fresh tensor. Every other
+call runs the forward eagerly, as the model does: on the CPU, in train mode,
+with grad on, and for a new signature while a ``torch.profiler`` runs
+(nothing is captured under one).
 
 A replay reads the parameters and buffers where they were at capture and
 casts the weights to bf16 inside the graph, so an update in place
@@ -27,16 +28,10 @@ its warm-up included.
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 
-from cilrs_tpu_torch.utils.profiling import kernel_launch, profiler_running, span
-
-# Eager calls on a side stream before a capture, as
-# ``torch.cuda.make_graphed_callables`` makes them: cuDNN and cuBLAS settle
-# their algorithms and workspaces before the graph fixes them.
-WARMUP_CALLS = 3
+from cilrs_tpu_torch.utils.cuda_graph import Graph, capture, replay
+from cilrs_tpu_torch.utils.profiling import profiler_running, span
 
 _GRAPH = span("policy_graph")
 _CAPTURE = span("policy_capture")
@@ -56,40 +51,6 @@ def graphable(model: torch.nn.Module, image) -> bool:
     return image.is_cuda and not model.training and not torch.is_grad_enabled()
 
 
-class _Graph(NamedTuple):
-    """A captured forward: the graph, its static inputs and its controls."""
-
-    graph: torch.cuda.CUDAGraph
-    inputs: tuple
-    out: torch.Tensor
-
-
-def _capture(model: torch.nn.Module, *args: torch.Tensor) -> _Graph:
-    """Warm ``model`` up on a side stream on copies of ``args``, then capture
-    its controls' forward over those copies."""
-    dev = args[0].device
-    with torch.cuda.device(dev):
-        # Normal tensors, not inference tensors: a later call may copy into
-        # them outside ``inference_mode`` (under ``no_grad``).
-        with torch.inference_mode(False):
-            inputs = tuple(torch.empty_like(x) for x in args)
-        for static, x in zip(inputs, args):
-            static.copy_(x)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_CALLS):
-                model(*inputs)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        # Thread-local: only this thread's calls are checked during the
-        # capture, so a collective library's watchdog thread (the sharded
-        # fleet's) cannot fail it.
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            out = model(*inputs)[0]
-    return _Graph(graph, inputs, out)
-
-
 class ModelPolicy:
     """``policy(image [E, H, W, 3] normalized, speed_norm [E], cmd [E]) ->
     controls [E, 3]``: ``model``'s controls, a fresh tensor each call, from a
@@ -98,7 +59,7 @@ class ModelPolicy:
 
     def __init__(self, model: torch.nn.Module):
         self.model = model
-        self.graphs: dict[tuple, _Graph] = {}
+        self.graphs: dict[tuple, Graph] = {}
 
     def __call__(self, image: torch.Tensor, speed_norm: torch.Tensor,
                  cmd: torch.Tensor) -> torch.Tensor:
@@ -111,10 +72,6 @@ class ModelPolicy:
             if profiler_running():
                 return model(image, speed_norm, cmd)[0]
             with _CAPTURE:
-                g = self.graphs[key] = _capture(model, image, speed_norm, cmd)
+                g = self.graphs[key] = capture(lambda *x: model(*x)[0], image, speed_norm, cmd)
         with _GRAPH:
-            for static, x in zip(g.inputs, (image, speed_norm, cmd)):
-                static.copy_(x)
-            with kernel_launch("cilrs_policy_graph"):
-                g.graph.replay()
-            return g.out.clone()
+            return replay(g, (image, speed_norm, cmd), "cilrs_policy_graph").clone()

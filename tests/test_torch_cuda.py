@@ -445,6 +445,93 @@ def test_policy_graph_leaves_train_mode_eager(cuda_device):
     assert len(policy.graphs) == 1 and span("policy_graph").calls == replays
 
 
+def _safety_town(dev):
+    """The safety tests' two-lane town and the weather table on the card."""
+    from torch_safety_cases import two_lane_town
+
+    return two_lane_town().to(dev), tc.load_weather_table(device=dev)
+
+
+@pytest.mark.parametrize("envs", [128, 1])
+def test_safety_graph_replays_the_eager_cascade(cuda_device, envs):
+    """Over 60 chained ticks of drawn inputs, the safety cascade's CUDA
+    graph gives the eager cascade's control, reverse flag, status, new
+    CtrlState and events bit for bit, in fresh tensors: what a call
+    returned is unchanged after the later ticks' replays."""
+    from cilrs_tpu_torch.agent import controller as tctl
+    from cilrs_tpu_torch.core.state import tree_map
+    from torch_safety_cases import chained_ticks, outputs_equal
+
+    net, wt = _safety_town(cuda_device)
+    ctrl, ticks = chained_ticks(net, envs, 60, seed=envs, device=cuda_device)
+    clone = lambda out: (*(x.clone() for x in out[:3]), tree_map(torch.clone, out[3]),
+                         {k: v.clone() for k, v in out[4].items()})
+    captures = len(tctl.GRAPHS)
+    ctrl_g, got, kept, want = ctrl, [], [], []
+    for world, obs in ticks:
+        got.append(tctl.safety_controller(net, world, ctrl_g, wt, *obs))
+        kept.append(clone(got[-1]))  # as it stands before the next replay
+        want.append(tctl.safety_cascade(net, world, ctrl, wt, *obs))
+        ctrl_g, ctrl = got[-1][3], want[-1][3]
+    torch.cuda.synchronize()
+    assert len(tctl.GRAPHS) == captures + 1
+    assert got[0][0].shape == (envs, 3) and got[0][0].is_cuda
+    for t, (g, k, w) in enumerate(zip(got, kept, want)):
+        assert outputs_equal(g, w), t
+        assert outputs_equal(g, k), t
+    statuses = set(torch.cat([g[2] for g in got]).tolist())
+    assert envs == 1 or set(range(8)) <= statuses, sorted(statuses)
+
+
+def test_safety_graph_captures_once_a_signature(cuda_device):
+    """Two fleet sizes give two captures and calls after them replay; a new
+    network object, or a new weather table, gives a capture of its own."""
+    import dataclasses
+
+    from cilrs_tpu_torch.agent import controller as tctl
+    from cilrs_tpu_torch.utils.profiling import span
+    from torch_safety_cases import chained_ticks, outputs_equal
+
+    net, wt = _safety_town(cuda_device)
+    captures, replays = span("safety_capture").calls, span("safety_graph").calls
+    graphs = len(tctl.GRAPHS)
+    for i, envs in enumerate((8, 4, 8, 4, 8)):
+        ctrl, ticks = chained_ticks(net, envs, 1, seed=i, device=cuda_device)
+        world, obs = ticks[0]
+        tctl.safety_controller(net, world, ctrl, wt, *obs)
+    assert len(tctl.GRAPHS) == graphs + 2 and span("safety_capture").calls == captures + 2
+    assert span("safety_graph").calls == replays + 5
+    ctrl, ticks = chained_ticks(net, 8, 1, seed=9, device=cuda_device)
+    world, obs = ticks[0]
+    for other_net, other_wt in ((dataclasses.replace(net), wt), (net, dataclasses.replace(wt))):
+        got = tctl.safety_controller(other_net, world, ctrl, other_wt, *obs)
+        assert outputs_equal(got, tctl.safety_cascade(net, world, ctrl, wt, *obs))
+    torch.cuda.synchronize()
+    assert len(tctl.GRAPHS) == graphs + 4 and span("safety_capture").calls == captures + 4
+
+
+def test_safety_graph_captures_nothing_under_a_profiler(cuda_device):
+    """A new signature met while a ``torch.profiler`` runs runs the eager
+    cascade and captures nothing; the next call outside it captures."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cilrs_tpu_torch.agent import controller as tctl
+    from cilrs_tpu_torch.utils.profiling import span
+    from torch_safety_cases import chained_ticks, outputs_equal
+
+    net, wt = _safety_town(cuda_device)
+    ctrl, ticks = chained_ticks(net, 5, 1, seed=3, device=cuda_device)
+    world, obs = ticks[0]
+    graphs, captures = len(tctl.GRAPHS), span("safety_capture").calls
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        got = tctl.safety_controller(net, world, ctrl, wt, *obs)
+    assert len(tctl.GRAPHS) == graphs and span("safety_capture").calls == captures
+    assert outputs_equal(got, tctl.safety_cascade(net, world, ctrl, wt, *obs))
+    tctl.safety_controller(net, world, ctrl, wt, *obs)
+    torch.cuda.synchronize()
+    assert len(tctl.GRAPHS) == graphs + 1 and span("safety_capture").calls == captures + 1
+
+
 def test_fused_ring_and_sampler_on_card_match_cpu(cuda_device):
     """The fused loop's ring and sampler on the card against the CPU: the
     same chunks (one wraps the 600-slot ring of 88x200 frames) and the same
